@@ -17,14 +17,18 @@ per phase; a failing phase raises, so the script exits non-zero:
    before and read just after; the GPU results must equal the port's CPU
    results (plain versions) and the batch the single-frame calls;
 4. kernel_parity: the local-refine kernel against its plain version on the
-   card, exactly, at the shapes of tests/test_pallas.py and at the inputs
-   the main path gave it;
+   card, exactly, at the shapes of tests/test_pallas.py, at F = 700, at the
+   levelup maximum F = 8191 and at F = 9000 (two table passes), and at the
+   inputs the main path gave it;
 5. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
 6. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
-   B=4, and of the kernel, its plain version and one PyTorch library call
-   computing the same function at the main path's shapes (replayed from
-   CUDA graphs, so host launch overhead is left out), beside the bound;
+   B=4, and of the kernel (replayed from CUDA graphs, so host launch
+   overhead is left out, and launched from Python) and its plain version,
+   beside the bound, at three calls: the main path's B=1 level-0 call, its
+   B=4 call and a K=1020, F=136 pool, with the rate at which the kernel
+   moves the L2 sectors its gather requests; at the B=1 call also one
+   PyTorch library call computing the same function;
 7. profile: torch.profiler's split of a B=1 frame into device kernels and
    host ops, and the device's idle share;
 8. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
@@ -175,7 +179,7 @@ def phase_match_vga(dev, cid, det, det_cpu, frames, depths):
     return calls, launches
 
 
-def _random_case(rng, dev, c, h, w, t, k, f, with_scale, b=None):
+def _random_case(rng, dev, c, h, w, t, k, f, with_scale, b=None, with_active=False):
     lead = (k,) if b is None else (b, k)
     maps = rng.integers(0, 5, ((c, h, w) if b is None else (b, c, h, w))).astype(np.uint8)
     feats = np.stack(
@@ -186,6 +190,8 @@ def _random_case(rng, dev, c, h, w, t, k, f, with_scale, b=None):
     case = dict(maps=maps, feats=feats, valid=valid, origins=org, t=t, window=16, scale=None, active=None)
     if with_scale:
         case["scale"] = rng.uniform(0.4, 1.3, lead).astype(np.float32)
+    if with_active:
+        case["active"] = rng.random(lead) < 0.7
     return {n: torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v for n, v in case.items()}
 
 
@@ -208,6 +214,9 @@ def phase_kernel_parity(dev, calls):
     act["valid"][:, 10:] = False  # padded tails
     act["active"] = torch.tensor([True, False] * 4, device=dev)
     cases["active_t4_K8_F16_tails"] = act
+    cases["vga_t5_K5_F700_scale_active"] = _random_case(rng, dev, 16, 480, 640, 5, 5, 700, True, with_active=True)
+    cases["levelup_max_K4_F8191_scale_active"] = _random_case(rng, dev, 16, 480, 640, 5, 4, 8191, True, with_active=True)
+    cases["two_passes_K3_F9000_scale_active"] = _random_case(rng, dev, 16, 480, 640, 5, 3, 9000, True, with_active=True)
     cases["main_path_B1"] = next(c for c in calls if c["maps"].shape[0] == 1)
     cases["main_path_B4"] = next(c for c in calls if c["maps"].shape[0] == 4)
     results = {}
@@ -222,7 +231,7 @@ def phase_kernel_parity(dev, calls):
         max_err = max(max_err, err)
         check(exact, f"kernel differs from its plain version in case {name}")
     emit("kernel_parity", t0, tolerance="exact (sums of small integers in float32)", cases=results)
-    return max_err
+    return max_err, cases["production_pool_K1020_F136_scale"]
 
 
 def phase_match_golden(dev):
@@ -277,16 +286,21 @@ def graph_ms(fn, reps: int, inner: int) -> float:
 def refine_bound(c) -> dict:
     """Least bytes and operations of one local-refine call on these inputs:
     the map bytes its live in-range windows touch, the feature tables and
-    the outputs, each once; one add per touched window cell."""
+    the outputs, each once; one add per touched window cell.  Also the
+    bytes of the 32-byte L2 sectors that the stride-t gather requests, one
+    window row of one feature at a time (``gather_sector_bytes``): what the
+    kernel moves through L2 when no sector is reused from L1."""
     single = c["maps"].dim() == 3
-    maps, feats, valid, origins, active = (
-        x[None] if single else x for x in (c["maps"], c["feats"], c["valid"], c["origins"], c["active"])
+    maps, feats, valid, origins, scale, active = (
+        x[None] if single and x is not None else x
+        for x in (c["maps"], c["feats"], c["valid"], c["origins"], c["scale"], c["active"])
     )
     b, ch, h, w = maps.shape
     t, win = c["t"], c["window"]
     hb, wb = -(-h // t), -(-w // t)
-    ok, cprime, by, bx = _feature_table(feats, valid, origins, t, hb, wb, None)
-    ok = ok & active[..., None]
+    ok, cprime, by, bx = _feature_table(feats, valid, origins, t, hb, wb, scale)
+    if active is not None:
+        ok = ok & active[..., None]
     chan, dy, dx = cprime // (t * t), (cprime % (t * t)) // t, cprime % t
     steps = torch.arange(win, device=maps.device)
     rows = (by[..., None] + steps) * t + dy[..., None]  # (B, K, F, win)
@@ -296,17 +310,48 @@ def refine_bound(c) -> dict:
     addr = (((frame * ch + chan[..., None, None]) * h + rows[..., :, None]) * w + cols[..., None, :]).long()
     touched = torch.zeros(maps.numel(), dtype=torch.bool, device=maps.device)
     touched[addr[cell]] = True
+    # A window row's in-map columns run from cols[..., 0] in steps of t <= 32
+    # bytes, so it requests every sector from its first byte's to its last's.
+    ncols = (cols < w).sum(-1)  # (B, K, F)
+    row_base = ((frame[..., 0] * ch + chan[..., None]) * h + rows) * w  # (B, K, F, win)
+    first = row_base + cols[..., :1]
+    last = first + ((ncols - 1) * t)[..., None]
+    row_live = ok[..., None] & (rows < h) & (ncols[..., None] > 0)
+    sectors = int(((last // 32 - first // 32 + 1) * row_live).sum())
     k, f = feats.shape[1:3]
-    table_bytes = b * k * (f * 12 + f + 8 + 1)
+    per_cand = f * 12 + f + 8 + (4 if scale is not None else 0) + (1 if active is not None else 0)
+    table_bytes = b * k * per_cand
     out_bytes = b * k * (win * win * 4 + 4)
     nbytes = int(touched.sum()) + table_bytes + out_bytes
     ops = int(cell.sum())
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "gather_sector_bytes": 32 * sectors}
 
 
-def phase_timing(dev, cid, det, frames, depths, calls):
+def time_refine(c) -> dict:
+    """The kernel on one call's inputs, replayed from a CUDA graph and
+    launched from Python, beside its plain version and the bound."""
+    def run_kernel():
+        return _run(LR.similarity_local_sparse_cuda, c)
+
+    maps = c["maps"] if c["maps"].dim() == 4 else c["maps"][None]
+    n_cand = maps.shape[0] * c["feats"].shape[-3]
+    kern_ms = graph_ms(run_kernel, reps=7, inner=100)
+    bound = refine_bound(c)
+    return {
+        "maps": list(c["maps"].shape), "feats": list(c["feats"].shape), "t": c["t"],
+        "live": int(c["active"].sum()) if c["active"] is not None else n_cand,
+        "groups": LR.split_groups(n_cand, torch.cuda.get_device_properties(0).multi_processor_count),
+        "kernel_ms": kern_ms,
+        "kernel_eager_ms": cuda_ms(run_kernel, reps=7, inner=100),
+        "plain_ms": graph_ms(lambda: _run(similarity_local_sparse, c), reps=7, inner=10),
+        "bound": bound,
+        "gather_sector_TB_per_s": bound["gather_sector_bytes"] / kern_ms / 1e9,
+    }
+
+
+def phase_timing(dev, cid, det, frames, depths, calls, pool_case):
     t0 = time.perf_counter()
     bank = det.device_bank(cid)
     rgb1 = torch.from_numpy(frames[0]).to(dev)
@@ -316,18 +361,17 @@ def phase_timing(dev, cid, det, frames, depths, calls):
     frame_b1 = cuda_ms(lambda: detect_frame_core(rgb1, dep1, bank, BENCH_CFG, 75.0), reps=20)
     frame_b4 = cuda_ms(lambda: detect_frame_core(rgb4, dep4, bank, BENCH_CFG, 75.0), reps=10) / 4
 
-    # The kernel at the main path's level-0 call, threshold LOW_THRESHOLD
-    # (the last single-frame call recorded), its plain version and the
-    # grouped conv of similarity_local on the same inputs.
+    # The kernel at three calls: the main path's level-0 call at threshold
+    # LOW_THRESHOLD (the last single-frame call recorded), its B=4 call and
+    # the K=1020, F=136 pool of kernel_parity.
     c = [c for c in calls if c["maps"].shape[0] == 1][-1]
     c = {n: v[0] if isinstance(v, torch.Tensor) else v for n, v in c.items()}  # the frame's (C, H, W) call
-    kern_eager_ms = cuda_ms(lambda: _run(LR.similarity_local_sparse_cuda, c), reps=7, inner=100)
-    kern_ms = graph_ms(lambda: _run(LR.similarity_local_sparse_cuda, c), reps=7, inner=100)
-    plain_ms = graph_ms(lambda: _run(similarity_local_sparse, c), reps=7, inner=10)
-    # One PyTorch call computing the same function: the grouped conv of
-    # similarity_local over the candidates' template kernels.  The recorded
-    # feature lists are rows of the bank's level-0 lists; matching them
-    # recovers each candidate's template id.
+    c4 = [c for c in calls if c["maps"].shape[0] == 4][-1]
+    refine = {"B1_level0": time_refine(c), "B4_level0": time_refine(c4), "pool_K1020_F136": time_refine(pool_case)}
+    # At the B=1 call, one PyTorch call computing the same function: the
+    # grouped conv of similarity_local over the candidates' template
+    # kernels.  The recorded feature lists are rows of the bank's level-0
+    # lists; matching them recovers each candidate's template id.
     rows_equal = (c["feats"][:, None] == bank.feats[0][None]).all(-1).all(-1)  # (K, N)
     kernels_sel = bank.kernels[0][rows_equal.to(torch.int8).argmax(dim=1)]
     lhs, rhs = _local_conv_operands(c["maps"], kernels_sel, c["origins"], c["t"], c["window"])
@@ -336,20 +380,17 @@ def phase_timing(dev, cid, det, frames, depths, calls):
     lib_scores = similarity_local(c["maps"], kernels_sel, c["origins"], c["t"])
     check(torch.equal(lib_scores[live], _run(LR.similarity_local_sparse_cuda, c)[0][live]),
           "the grouped conv disagrees with the kernel on live candidates")
-    bound = refine_bound(c)
+    refine["B1_level0"]["library_grouped_conv_ms"] = lib_ms
     emit(
         "timing", t0, nvidia_smi=nvidia_smi(),
         detect_frame_core_ms_per_frame={"B1": frame_b1, "B4": frame_b4},
-        refine_shapes={"maps": list(c["maps"].shape), "feats": list(c["feats"].shape),
-                       "live": int(live.sum()), "t": c["t"]},
-        refine_ms={"kernel": kern_ms, "kernel_eager_launches": kern_eager_ms, "plain": plain_ms,
-                   "library_grouped_conv": lib_ms},
-        bound=bound,
+        refine=refine,
         method=("CUDA events, medians; detect_frame_core: whole eager calls; refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
-                "main path; kernel_eager_launches: the same 100 launches issued from Python"),
+                "main path; kernel_eager_ms: the same 100 launches issued from Python"),
     )
-    return kern_ms, plain_ms, lib_ms, bound
+    b1 = refine["B1_level0"]
+    return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
 
 
 def phase_profile(dev, cid, det, frames, depths, n: int = 5):
@@ -417,9 +458,9 @@ def main() -> int:
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
-    max_err = phase_kernel_parity(dev, calls)
+    max_err, pool_case = phase_kernel_parity(dev, calls)
     phase_match_golden(dev)
-    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls)
+    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case)
     phase_profile(dev, cid, det, frames, depths)
 
     print(json.dumps({"kernels": [{

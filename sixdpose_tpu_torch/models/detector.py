@@ -29,6 +29,7 @@ import torch
 
 from sixdpose_tpu_torch.config import DetectorConfig
 from sixdpose_tpu_torch.convert import DeviceBank, bank_levels_from_numpy
+from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops.similarity import (
@@ -220,18 +221,6 @@ def detect_frame_core(
 # The JAX package's jit-compiled single-dispatch entry; eager PyTorch has
 # nothing to compile, so it is the same function.
 detect_frame = detect_frame_core
-
-
-def resolve_device(device=None) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names
-    another; raises when CUDA is asked for (or defaulted to) and absent."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; the detector runs on the GPU unless "
-            "device='cpu' is passed"
-        )
-    return dev
 
 
 def _image(a, dtype: torch.dtype, device: torch.device) -> Optional[torch.Tensor]:

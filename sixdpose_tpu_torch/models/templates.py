@@ -28,6 +28,7 @@ import torch
 from scipy import ndimage
 
 from sixdpose_tpu_torch.config import DetectorConfig
+from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops.similarity import build_template_kernels
 
@@ -269,11 +270,13 @@ def extract_template(
     depth: Optional[np.ndarray],
     mask: np.ndarray,
     cfg: DetectorConfig,
-    device="cpu",
+    device=None,
 ) -> Optional[List[TemplateLevel]]:
     """Extract one multi-level template (reference Detector::addTemplate,
-    cpp:1943-1975), quantizing on ``device``.  Returns None if any level
-    finds too few features (the reference returns -1)."""
+    cpp:1943-1975), quantizing on ``device``: CUDA by default, raising when
+    there is none; pass ``device="cpu"`` to run on the CPU.  Returns None if
+    any level finds too few features (the reference returns -1)."""
+    device = resolve_device(device)
     color_levels = None
     if cfg.use_color:
         color_levels = []
@@ -336,9 +339,10 @@ class TemplateBank:
         depth: Optional[np.ndarray],
         mask: np.ndarray,
         info: Optional[dict] = None,
-        device="cpu",
+        device=None,
     ) -> int:
-        """Extract and store one template; returns its id or -1."""
+        """Extract and store one template; returns its id or -1.  Quantizes
+        on ``device``, CUDA by default (see ``extract_template``)."""
         tl = extract_template(rgb, depth, mask, self.cfg, device)
         if tl is None:
             return -1

@@ -17,7 +17,19 @@ import torch
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops.similarity import similarity_local_sparse
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_WARPS_PER_GROUP = 8  # a group is 256 threads, one per window cell
+_TARGET_WARPS_PER_SM = 32
+
+
+def split_groups(n_candidates: int, n_sm: int) -> int:
+    """Thread groups per candidate block (1, 2 or 4): the fewest that give
+    the card about ``_TARGET_WARPS_PER_SM`` warps per SM for ``n_candidates``
+    blocks, and 4 when even that falls short (B=1, K=128 on 132 SMs)."""
+    for groups in (1, 2):
+        if n_candidates * _WARPS_PER_GROUP * groups >= _TARGET_WARPS_PER_SM * n_sm:
+            return groups
+    return 4
 
 
 def _library() -> ctypes.CDLL:
@@ -96,6 +108,7 @@ def similarity_local_sparse_cuda(
     counts = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b * k > 0:
         lib = _library()
+        groups = split_groups(b * k, torch.cuda.get_device_properties(dev).multi_processor_count)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.local_refine_launch(
@@ -103,7 +116,7 @@ def similarity_local_sparse_cuda(
                 scale.data_ptr() if scale is not None else None,
                 active.data_ptr() if active is not None else None,
                 scores.data_ptr(), counts.data_ptr(),
-                b, c, h, w, k, f, t, window, stream,
+                b, c, h, w, k, f, t, window, groups, stream,
             )
         if rc != 0:
             raise RuntimeError(f"local_refine kernel launch failed: cudaError {rc}")

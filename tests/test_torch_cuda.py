@@ -53,7 +53,10 @@ def _case(seed, c, h, w, t, k, f, xmax=120, ymax=150, b=None, scale=False, activ
 
 
 # The shapes of tests/test_pallas.py, a window below 16, a batch of frames,
-# a feature list longer than one shared-memory chunk (256) and F = 61.
+# F = 700 and F = 61; the levelup maximum F = 8191 (one table pass) and
+# F = 9000 (two passes); each split of a candidate into 1, 2 or 4 thread
+# groups (chosen from B*K, here for 132 SMs) with F not a multiple of it,
+# up to B*K = 1020.
 CASES = {
     "vga_t5_K16_F64_scale": (5, 16, dict(c=16, h=480, w=640, t=5, k=16, f=64, scale=True)),
     "t4_K8_F16_active_tails": (4, 16, dict(c=8, h=128, w=128, t=4, k=8, f=16, xmax=30, ymax=30, active=True)),
@@ -61,6 +64,11 @@ CASES = {
     "batch3_t5_K12_F40_active": (5, 16, dict(c=16, h=96, w=128, t=5, k=12, f=40, b=3, active=True)),
     "t5_K5_F700_scale_active": (5, 16, dict(c=16, h=96, w=128, t=5, k=5, f=700, scale=True, active=True)),
     "t4_K9_F61_edges": (4, 16, dict(c=16, h=93, w=122, t=4, k=9, f=61)),
+    "t5_K4_F8191_scale_active": (5, 16, dict(c=16, h=480, w=640, t=5, k=4, f=8191, scale=True, active=True)),
+    "t5_K3_F9000_two_passes": (5, 16, dict(c=16, h=480, w=640, t=5, k=3, f=9000, scale=True, active=True)),
+    "t5_K128_F253_split4": (5, 16, dict(c=16, h=480, w=640, t=5, k=128, f=253, active=True)),
+    "t4_K300_F37_split2_window13": (4, 13, dict(c=16, h=203, w=317, t=4, k=300, f=37, scale=True)),
+    "batch4_t5_K255_F29_split1": (5, 16, dict(c=16, h=161, w=242, t=5, k=255, f=29, b=4, scale=True, active=True)),
 }
 
 

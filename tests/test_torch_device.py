@@ -1,0 +1,56 @@
+"""The port's entry points run on the card unless the caller asks for the CPU.
+
+``Detector``, ``extract_template`` and ``TemplateBank.add_template`` resolve
+their device the same way (``sixdpose_tpu_torch.device.resolve_device``):
+without CUDA their defaults raise one and the same RuntimeError.  CUDA is
+hidden with monkeypatch, so the test runs the same on every machine.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from sixdpose_tpu_torch.config import ColorGradientConfig, DetectorConfig
+from sixdpose_tpu_torch.device import resolve_device
+from sixdpose_tpu_torch.models import templates as TT
+from sixdpose_tpu_torch.models.detector import Detector
+
+CFG = DetectorConfig(t_at_level=(4, 8), use_depth=False, top_k=16, color=ColorGradientConfig(num_features=24))
+
+
+def _view(h=96, w=128):
+    """A two-colour disc on a black canvas, and its mask."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    m = (yy - 48) ** 2 + (xx - 64) ** 2 < 22**2
+    rgb = np.zeros((h, w, 3), np.uint8)
+    rgb[m] = (60, 170, 230)
+    rgb[m & (xx > 64)] = (230, 90, 30)
+    return rgb, (m * 255).astype(np.uint8)
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rgb, mask = _view()
+    calls = {
+        "Detector": lambda: Detector(CFG),
+        "extract_template": lambda: TT.extract_template(rgb, None, mask, CFG),
+        "TemplateBank.add_template": lambda: TT.TemplateBank(CFG).add_template("obj", rgb, None, mask),
+    }
+    messages = {}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA") as err:
+            call()
+        messages[name] = str(err.value)
+    assert len(set(messages.values())) == 1, messages
+    # Asked for the CPU, each runs there.
+    assert Detector(CFG, device="cpu").device.type == "cpu"
+    assert TT.extract_template(rgb, None, mask, CFG, device="cpu") is not None
+    assert TT.TemplateBank(CFG).add_template("obj", rgb, None, mask, device="cpu") == 0
+
+
+def test_resolve_device_names():
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(torch.device("cpu")).type == "cpu"
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            resolve_device("cuda:0")

@@ -89,6 +89,16 @@ def test_batched_frames(rng):
         np.testing.assert_array_equal(tc[b].numpy(), jc)
 
 
+@pytest.mark.parametrize(
+    "n_candidates,groups",
+    [(1, 4), (4, 4), (128, 4), (263, 4), (264, 2), (512, 2), (527, 2), (528, 1), (1020, 1), (5000, 1)],
+)
+def test_split_groups_fills_the_card(n_candidates, groups):
+    """Groups of 256 threads per candidate on a 132-SM card: the fewest of
+    1, 2, 4 that give about 32 warps per SM, 4 at most."""
+    assert LR.split_groups(n_candidates, 132) == groups
+
+
 def test_cpu_wrapper_runs_plain_version_uncounted(rng):
     maps, feats, valid, org = _case(rng, 5, 16, 96, 128, 4, 20, 60, 60, 16)
     before = LR.similarity_local_sparse_cuda.launches

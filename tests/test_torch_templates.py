@@ -51,7 +51,7 @@ def test_extract_template(case):
     jcfg = JConfig(color=JColor(**ckw), **kw)
     tcfg = DetectorConfig(color=ColorGradientConfig(**ckw), **kw)
     j = JT.extract_template(rgb, depth, mask, jcfg)
-    t = TT.extract_template(rgb, depth, mask, tcfg)
+    t = TT.extract_template(rgb, depth, mask, tcfg, device="cpu")
     assert j is not None and t is not None
     for a, b in zip(j, t):
         np.testing.assert_array_equal(b.features, a.features)
