@@ -2,11 +2,14 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, single-class template matching
-(``detect_frame_core`` through ``Detector``), at the full width of the JAX
-package's bench workload (VGA RGB-D, 89 templates x 2 modalities,
-``t_at_level=(5, 8)``, top_k 128), and checks every result.  One JSON line
-per phase; a failing phase raises, so the script exits non-zero:
+Drives the port's main paths at the full width of the JAX package's bench
+workload (VGA RGB-D, 89 templates x 2 modalities, ``t_at_level=(5, 8)``,
+top_k 128): single-class template matching (``detect_frame_core`` through
+``Detector``) and the fused detect -> refine -> verify frame
+(``detect_refine_core``, with bench.py's refine stage: 8 candidates x
+512-point clouds, 16 ICP iterations, the colored term, 512-point
+verification), and checks every result.  One JSON line per phase; a
+failing phase raises, so the script exits non-zero:
 
 1. env: versions, device, ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel in ``sixdpose_tpu_torch/csrc`` with nvcc;
@@ -22,19 +25,33 @@ per phase; a failing phase raises, so the script exits non-zero:
    inputs the main path gave it;
 5. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
-6. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
-   B=4, and of the kernel (replayed from CUDA graphs, so host launch
-   overhead is left out, and launched from Python) and its plain version,
-   beside the bound, at three calls: the main path's B=1 level-0 call, its
-   B=4 call and a K=1020, F=136 pool, with the rate at which the kernel
-   moves the L2 sectors its gather requests; at the B=1 call also one
-   PyTorch library call computing the same function;
-7. profile: torch.profiler's split of a B=1 frame into device kernels and
-   host ops, and the device's idle share;
-8. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
-   source, the TPU kernels it replaces, its launches in phase 3, its error
-   against the plain version, and its time beside the plain version's, the
-   library call's and the bound; then the ``nvidia-smi`` line again.
+6. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
+   75 (as bench.py) and 30 (8 live candidates refine), with the kernels'
+   launch counts set to 0 just before and read just after, and one more
+   frame under ``torch.cuda.set_sync_debug_mode("error")`` (nothing may
+   wait for the device); the GPU results must equal the port's CPU results
+   within the tolerances of ``FUSED_TOL``;
+7. refine_golden: ``FusedPipeline`` on the card against the JAX golden of
+   the fused pipeline on the planted-object scene, and its top pose moves
+   the object by the planted shift;
+8. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+   B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
+   30) split by stage with CUDA events between stages, beside per-frame
+   bounds of the scene maps and of ICP; and of the kernel (replayed from
+   CUDA graphs, so host launch overhead is left out, and launched from
+   Python) and its plain version, beside the bound, at three calls: the
+   main path's B=1 level-0 call, its B=4 call and a K=1020, F=136 pool,
+   with the rate at which the kernel moves the L2 sectors its gather
+   requests; at the B=1 call also one PyTorch library call computing the
+   same function;
+9. profile: torch.profiler's split of a B=1 match frame and of a B=1
+   detect+refine frame into device kernels and host ops, and the device's
+   idle share;
+10. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+   source, the TPU kernels it replaces, its launches in phase 6 (and per
+   phase in phases 3 and 6), its error against the plain version, and its
+   time beside the plain version's, the library call's and the bound; then
+   the ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script prints no result and exits 2.
@@ -54,9 +71,12 @@ import numpy as np
 import torch
 
 from sixdpose_tpu_torch import synthetic
-from sixdpose_tpu_torch.config import DetectorConfig
+from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
+from sixdpose_tpu_torch.convert import refine_bank_from_numpy
 from sixdpose_tpu_torch.models import detector as D
+from sixdpose_tpu_torch.models import pipeline as P
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
+from sixdpose_tpu_torch.models.pipeline import FusedPipeline, detect_refine_core
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops.similarity import (
@@ -71,6 +91,12 @@ TESTDATA = os.path.join(ROOT, "sixdpose_tpu_torch", "testdata")
 BENCH_CFG = DetectorConfig(t_at_level=(5, 8))
 LOW_THRESHOLD = 30.0
 MIN_LIVE = 64
+FUSED = ("tid", "x", "y", "score", "R", "t_mm", "fitness", "verify", "active")
+# GPU against CPU (and against the JAX golden) for the fused frame: tid, x,
+# y, score and active exactly; R per entry and t in mm absolutely; fitness
+# and verify within 2 points of their N cloud / P verify points.
+FUSED_TOL = {"R": 1e-4, "t_mm": 0.1, "fitness_points": 2, "verify_points": 2}
+STAGES = ("match", "seed_and_fan", "scene_maps", "icp", "compose_and_verify")
 # H100 SXM peaks (NVIDIA data sheet, at the 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12  # non-tensor-core rate; the kernel's int32 adds run there
@@ -251,6 +277,99 @@ def phase_match_golden(dev):
          planted=[int(v) for v in g["expected_xy"]], live=int((score >= 0).sum()))
 
 
+def fused_diff(a, b, n_points: int, n_verify: int) -> dict:
+    """Compare two fused results (``FUSED`` order): whether active, and tid,
+    x, y and score on active slots, are equal; the largest differences of
+    the floats on active slots; whether every output is bitwise equal; and
+    whether all is within ``FUSED_TOL``."""
+    a = [np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in a]
+    b = [np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v) for v in b]
+    act = a[8]
+    exact = np.array_equal(act, b[8]) and all(np.array_equal(a[i][act], b[i][act]) for i in range(4))
+    err = {name: float(np.abs(a[i][act] - b[i][act]).max(initial=0.0)) for i, name in
+           ((4, "R"), (5, "t_mm"), (6, "fitness"), (7, "verify"))}
+    within = exact and err["R"] <= FUSED_TOL["R"] and err["t_mm"] <= FUSED_TOL["t_mm"] and (
+        err["fitness"] <= FUSED_TOL["fitness_points"] / n_points + 1e-6) and (
+        err["verify"] <= FUSED_TOL["verify_points"] / n_verify + 1e-6)
+    return {"ints_equal": bool(exact), "max_err": err, "bitwise": all(np.array_equal(x, y) for x, y in zip(a, b)),
+            "within_tol": bool(within), "active": int(act.sum())}
+
+
+def refine_runner(cid, det, b: dict, device):
+    """``detect_refine_core(rgb, depth, threshold)`` of the bench workload on
+    ``device``: the detector's bank and bench.py's refine stage ``b``
+    (``synthetic.bench_refine_bank``)."""
+    bank = det.device_bank(cid)
+    rb = refine_bank_from_numpy(b["fields"], b["win"], device)
+    K, vp, vc = (torch.from_numpy(b[n]).to(device) for n in ("K", "verify_pts", "verify_colors"))
+
+    def run(rgb, depth, threshold):
+        return detect_refine_core(rgb, depth, bank, BENCH_CFG, threshold, rb, b["icp"], K, b["max_refine"], vp, vc)
+
+    return run
+
+
+def frame_tensors(frames, depths, device, i: int = 0):
+    return torch.from_numpy(frames[i]).to(device), torch.from_numpy(depths[i].astype(np.int32)).to(device)
+
+
+def phase_refine_vga(dev, cid, det, det_cpu, frames, depths):
+    t0 = time.perf_counter()
+    b = synthetic.bench_refine_bank(det.device_bank(cid).whs[0].cpu().numpy())
+    run, run_cpu = refine_runner(cid, det, b, dev), refine_runner(cid, det_cpu, b, "cpu")
+    rgb, dep = frame_tensors(frames, depths, dev)
+    rgb_c, dep_c = frame_tensors(frames, depths, "cpu")
+    thresholds = (75.0, LOW_THRESHOLD)
+    LR.similarity_local_sparse_cuda.launches = 0
+    gpu = {thr: run(rgb, dep, thr) for thr in thresholds}
+    torch.cuda.synchronize()
+    # One frame in which any wait for the device raises: nothing between the
+    # upload above and the readback below may synchronize.
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unsynced = run(rgb, dep, LOW_THRESHOLD)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = LR.similarity_local_sparse_cuda.launches
+    check(launches > 0, "the refine kernel was not launched in the detect+refine frames")
+    n_pts, n_ver = b["fields"][0].shape[1], len(b["verify_pts"])
+    diffs = {str(thr): fused_diff(gpu[thr], run_cpu(rgb_c, dep_c, thr), n_pts, n_ver) for thr in thresholds}
+    for thr, d in diffs.items():
+        check(d["within_tol"], f"detect_refine_core on the GPU differs from the CPU at threshold {thr}: {d}")
+    check(diffs[str(LOW_THRESHOLD)]["active"] == b["max_refine"], f"not {b['max_refine']} active candidates at {LOW_THRESHOLD}")
+    rerun = fused_diff(unsynced, gpu[LOW_THRESHOLD], n_pts, n_ver)
+    check(rerun["bitwise"], "a second GPU run of the same frame differs")
+    emit("refine_vga", t0, launches=launches, thresholds=list(thresholds), gpu_vs_cpu=diffs, tolerance=FUSED_TOL,
+         sync_free_frame=True, rerun_bitwise_equal=True,
+         fitness_low=[round(float(v), 4) for v in gpu[LOW_THRESHOLD][6].cpu()],
+         verify_low=[round(float(v), 4) for v in gpu[LOW_THRESHOLD][7].cpu()])
+    return launches, b
+
+
+def phase_refine_golden(dev):
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(TESTDATA, "planted_refine_golden.npz"))
+    scene = np.load(os.path.join(TESTDATA, "planted_golden.npz"))
+    det = Detector.read_classes(os.path.join(TESTDATA, "planted_bank.npz"), BENCH_CFG, device=dev)
+    pipe = FusedPipeline(
+        det, "planted", g["K"], icp=IcpConfig(max_iters=int(g["icp_max_iters"])), max_refine=int(g["max_refine"]),
+        num_points=int(g["num_points"]), verify_pts=g["verify_pts"], verify_colors=g["verify_colors"],
+        icp_seeds=int(g["icp_seeds"]), seed_flip=bool(g["seed_flip"]), device=dev,
+    )
+    rgb, depth = synthetic.planted_scene(*(int(v) for v in scene["scene_xy"]), seed=int(scene["scene_seed"]))
+    out = [a.cpu().numpy() for a in pipe(rgb, depth, float(g["threshold"]))]
+    d = fused_diff([g[k] for k in FUSED], out, int(g["num_points"]), len(g["verify_pts"]))
+    check(d["within_tol"] and d["active"] >= 3, f"the fused pipeline differs from the JAX golden: {d}")
+    c = det.bank.infos["planted"][0]["icp_points"].astype(np.float64).mean(0) * 1000.0
+    moved = out[4][0].astype(np.float64) @ c + out[5][0] - c
+    miss = float(np.linalg.norm(moved - g["planted_shift_mm"]))
+    check(out[8][0] and out[0][0] == 0 and miss <= float(g["translation_tol_mm"]),
+          f"the top pose moves the object by {moved.tolist()} mm, planted {g['planted_shift_mm'].tolist()}")
+    emit("refine_golden", t0, vs_jax=d, top_moves_object_mm=moved.tolist(),
+         planted_shift_mm=g["planted_shift_mm"].tolist(), miss_mm=miss)
+
+
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
     fn()
@@ -351,7 +470,96 @@ def time_refine(c) -> dict:
     }
 
 
-def phase_timing(dev, cid, det, frames, depths, calls, pool_case):
+@contextmanager
+def stage_events(marks: list):
+    """Record a CUDA event at each stage boundary of ``detect_refine_core``:
+    after the match, before the scene maps, and before and after ICP (the
+    pipeline module's own names, wrapped for the duration)."""
+    original = {n: getattr(P, n) for n in ("detect_frame_core", "backproject", "icp_batch")}
+
+    def mark():
+        event = torch.cuda.Event(enable_timing=True)
+        event.record()
+        marks.append(event)
+
+    def wrap(fn, before: bool, after: bool):
+        def wrapped(*args, **kwargs):
+            if before:
+                mark()
+            out = fn(*args, **kwargs)
+            if after:
+                mark()
+            return out
+        return wrapped
+
+    P.detect_frame_core = wrap(original["detect_frame_core"], False, True)
+    P.backproject = wrap(original["backproject"], True, False)
+    P.icp_batch = wrap(original["icp_batch"], True, True)
+    try:
+        yield
+    finally:
+        for name, fn in original.items():
+            setattr(P, name, fn)
+
+
+def stage_ms(run, rgb, dep, threshold: float, reps: int) -> dict:
+    """Median ms of each of ``STAGES`` of a detect+refine frame over ``reps``
+    frames, between CUDA events recorded at the stage boundaries."""
+    run(rgb, dep, threshold)
+    torch.cuda.synchronize()
+    per = {s: [] for s in STAGES}
+    for _ in range(reps):
+        marks: list = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with stage_events(marks):
+            start.record()
+            run(rgb, dep, threshold)
+            end.record()
+        end.synchronize()
+        events = [start, *marks, end]
+        check(len(events) == len(STAGES) + 1, f"{len(events)} stage events for {len(STAGES)} stages")
+        for stage, a, b in zip(STAGES, events, events[1:]):
+            per[stage].append(a.elapsed_time(b))
+    return {s: statistics.median(v) for s, v in per.items()}
+
+
+# Float operations per unit of work, counted from the code: per pixel of the
+# scene maps (backproject, the normals' box filter and differences, the
+# chroma blur and gradients), and per point and iteration of ICP with the
+# colored term (transform, association, residuals, the per-point normal
+# equations of the three terms, their fixed-order reduction).
+SCENE_MAP_OPS_PER_PIXEL = 175
+ICP_OPS_PER_POINT_ITER = 850
+
+
+def refine_frame_bounds(h: int, w: int, b: dict) -> dict:
+    """Least time per frame on the card of the scene maps and of ICP for
+    this run's shapes: the larger of bytes over the memory rate and float
+    operations over the non-tensor float32 rate.
+
+    Scene maps read the int32 depth and the RGB once and write the packed
+    (H*W, 7) scene table and the (H*W, 6) chroma table once.  ICP reads the
+    clouds (points, validity, chroma) and both tables once (a run's taps
+    touch fewer rows, so this overstates its bytes) and writes the poses.
+    """
+    clouds = b["fields"][0]
+    k, n = b["max_refine"], clouds.shape[1]
+    icp = b["icp"]
+    n_bi = max(0, min(icp.bilinear_iters, icp.max_iters))
+    n_coarse = len(range(0, n, max(1, n // max(icp.coarse_points, 8))))
+    point_iters = k * ((icp.max_iters - n_bi) * n_coarse + n_bi * n + n)
+    out = {}
+    for name, nbytes, ops in (
+        ("scene_maps", h * w * (4 + 3 + 7 * 4 + 6 * 4), h * w * SCENE_MAP_OPS_PER_PIXEL),
+        ("icp", k * n * (12 + 1 + 8) + h * w * 13 * 4 + k * (16 * 4 + 8), point_iters * ICP_OPS_PER_POINT_ITER),
+    ):
+        t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+        out[name] = {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    return out
+
+
+def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage):
     t0 = time.perf_counter()
     bank = det.device_bank(cid)
     rgb1 = torch.from_numpy(frames[0]).to(dev)
@@ -360,6 +568,17 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case):
     dep4 = torch.from_numpy(depths.astype(np.int32)).to(dev)
     frame_b1 = cuda_ms(lambda: detect_frame_core(rgb1, dep1, bank, BENCH_CFG, 75.0), reps=20)
     frame_b4 = cuda_ms(lambda: detect_frame_core(rgb4, dep4, bank, BENCH_CFG, 75.0), reps=10) / 4
+
+    # The detect+refine frame at B=1, whole and by stage.
+    run = refine_runner(cid, det, refine_stage, dev)
+    thresholds = (75.0, LOW_THRESHOLD)
+    refine_frame = {str(t): cuda_ms(lambda t=t: run(rgb1, dep1, t), reps=20) for t in thresholds}
+    refine_stages = {str(t): stage_ms(run, rgb1, dep1, t, reps=10) for t in thresholds}
+    bounds = refine_frame_bounds(*rgb1.shape[:2], refine_stage)
+    low = refine_stages[str(LOW_THRESHOLD)]
+    for stage in ("scene_maps", "icp"):
+        bounds[stage]["measured_ms_at_30"] = low[stage]
+        bounds[stage]["times_bound"] = low[stage] / bounds[stage]["bound_ms"]
 
     # The kernel at three calls: the main path's level-0 call at threshold
     # LOW_THRESHOLD (the last single-frame call recorded), its B=4 call and
@@ -384,8 +603,12 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case):
     emit(
         "timing", t0, nvidia_smi=nvidia_smi(),
         detect_frame_core_ms_per_frame={"B1": frame_b1, "B4": frame_b4},
+        detect_refine_core_ms_per_frame_B1=refine_frame,
+        detect_refine_core_stage_ms_B1=refine_stages,
+        refine_frame_bounds=bounds,
         refine=refine,
-        method=("CUDA events, medians; detect_frame_core: whole eager calls; refine: 100 (kernel), "
+        method=("CUDA events, medians; detect_frame_core and detect_refine_core: whole eager calls (20, or 10 "
+                "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
                 "main path; kernel_eager_ms: the same 100 launches issued from Python"),
     )
@@ -393,25 +616,22 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case):
     return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
 
 
-def phase_profile(dev, cid, det, frames, depths, n: int = 5):
-    """Where a B=1 frame's time goes: torch.profiler over ``n`` frames of
-    ``detect_frame_core`` after warm-up.  Device time is the sum of kernel
-    self times (one stream, so they do not overlap); the idle share is the
-    rest of the profiled wall time, which the profiler itself lengthens."""
+def phase_profile(name: str, frame, n: int = 5):
+    """Where a frame's time goes: torch.profiler over ``n`` calls of
+    ``frame()`` after warm-up.  Device time is the sum of kernel self times
+    (one stream, so they do not overlap); the idle share is the rest of the
+    profiled wall time, which the profiler itself lengthens."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     t0 = time.perf_counter()
-    bank = det.device_bank(cid)
-    rgb = torch.from_numpy(frames[0]).to(dev)
-    dep = torch.from_numpy(depths[0].astype(np.int32)).to(dev)
     for _ in range(3):
-        detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0)
+        frame()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         w0 = time.perf_counter()
         for _ in range(n):
-            detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0)
+            frame()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - w0) * 1e3 / n
     rows = prof.key_averages()
@@ -425,7 +645,7 @@ def phase_profile(dev, cid, det, frames, depths, n: int = 5):
     top_dev = sorted(dev_rows, key=dev_us, reverse=True)[:8]
     top_cpu = sorted(cpu_rows, key=lambda r: r.self_cpu_time_total, reverse=True)[:8]
     emit(
-        "profile", t0, frames=n, wall_ms_per_frame_profiled=wall_ms, device_ms_per_frame=device_ms,
+        name, t0, frames=n, wall_ms_per_frame_profiled=wall_ms, device_ms_per_frame=device_ms,
         device_idle_share=1.0 - device_ms / wall_ms if wall_ms else None,
         kernel_launches_per_frame=sum(r.count for r in dev_rows) / n,
         top_device=[[r.key[:70], dev_us(r) / 1e3 / n, r.count / n] for r in top_dev],
@@ -457,11 +677,17 @@ def main() -> int:
     })
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
-    calls, launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
+    calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
     max_err, pool_case = phase_kernel_parity(dev, calls)
     phase_match_golden(dev)
-    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case)
-    phase_profile(dev, cid, det, frames, depths)
+    launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
+    phase_refine_golden(dev)
+    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage)
+    bank = det.device_bank(cid)
+    rgb, dep = frame_tensors(frames, depths, dev)
+    run = refine_runner(cid, det, refine_stage, dev)
+    phase_profile("profile", lambda: detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0))
+    phase_profile("profile_refine", lambda: run(rgb, dep, LOW_THRESHOLD))
 
     print(json.dumps({"kernels": [{
         "name": "local_refine",
@@ -469,6 +695,7 @@ def main() -> int:
         "source": "sixdpose_tpu_torch/csrc/local_refine.cu",
         "replaces": REPLACES,
         "launches": launches,
+        "launches_by_phase": {"match_vga": match_launches, "refine_vga": launches},
         "exact_vs_plain": True,
         "max_abs_err": max_err,
         "ms": kern_ms,

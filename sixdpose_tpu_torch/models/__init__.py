@@ -1,1 +1,3 @@
-"""Model-level APIs: the template bank and the template-matching detector."""
+"""Model-level APIs: the template bank, the template-matching detector,
+batched ICP and verification, and the fused detect -> refine -> verify
+pipeline."""

@@ -31,8 +31,9 @@ _PYR5 = tuple(float(v) for v in np.array([1, 4, 6, 4, 1], np.float32) / np.float
 
 
 def _f32(v: float, device) -> torch.Tensor:
-    """A float32 scalar rounded the way ``jnp.float32(v)`` rounds it."""
-    return torch.tensor(np.float32(v), device=device)
+    """A float32 scalar rounded the way ``jnp.float32(v)`` rounds it, made on
+    ``device`` by a fill (a host-to-device copy would wait for the device)."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32, device=device)
 
 
 def _pad_index(n: int, r: int, mode: str, device) -> torch.Tensor:
@@ -274,7 +275,7 @@ def median5x5_onehot_u8(img: torch.Tensor) -> torch.Tensor:
         cums.append(cum)
     med = torch.full(img.shape, 128, dtype=torch.uint8, device=img.device)
     for v, c in zip((64, 32, 16, 8, 4, 2, 1, 0), reversed(cums)):
-        med = torch.where(c >= 13, torch.tensor(v, dtype=torch.uint8, device=img.device), med)
+        med = torch.where(c >= 13, torch.full((), v, dtype=torch.uint8, device=img.device), med)
     return med
 
 

@@ -275,5 +275,5 @@ def score_normalize(raw: torch.Tensor, nfeat: torch.Tensor) -> torch.Tensor:
     denom = torch.clamp(4.0 * nfeat.to(torch.float32), min=1.0)
     # A true float32 division (a Python scalar over a tensor would become a
     # reciprocal times 100, which rounds differently from the JAX code).
-    hundred = torch.tensor(100.0, dtype=torch.float32, device=raw.device)
+    hundred = torch.full((), 100.0, dtype=torch.float32, device=raw.device)
     return raw * (hundred / denom.reshape(denom.shape + (1,) * (raw.dim() - denom.dim())))

@@ -4,10 +4,12 @@
   (``_synthetic_bank``, bench.py:76-103): one class of 89 templates with 254
   features at level 0 and 127 at level 1, and a VGA RGB-D frame, drawn from
   the same seed in the same order, so both packages see identical data.
+- ``bench_refine_bank``: the refine stage bench.py adds to that workload
+  for its detect+refine measurement (bench.py:229-270).
 - ``training_view`` / ``planted_scene``: a VGA scene with a textured
   object on a depth dome pasted at a known place, and the views that
   train its templates.  ``tools/torch_port_golden.py`` records what the
-  JAX package detects in it.
+  JAX package detects and refines in it.
 """
 
 from __future__ import annotations
@@ -16,10 +18,13 @@ from typing import List, Tuple
 
 import numpy as np
 
+from sixdpose_tpu_torch.config import IcpConfig
 from sixdpose_tpu_torch.models.templates import TemplateLevel
 
 VGA = (480, 640)
 OBJECT_SIZE = 112
+# bench.py's camera (K_cam, bench.py:258-267), also the planted scene's.
+BENCH_K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1]], np.float32)
 
 
 def bench_bank(num_templates: int = 89, seed: int = 0):
@@ -39,6 +44,49 @@ def bench_bank(num_templates: int = 89, seed: int = 0):
     rgb = rng.integers(0, 255, (480, 640, 3), np.uint8)
     dep = (900 + 60 * rng.standard_normal((480, 640))).astype(np.uint16)
     return "synthetic", templates, rgb, dep
+
+
+def bench_refine_bank(whs0: np.ndarray, seed: int = 0) -> dict:
+    """The refine stage of bench.py's detect+refine workload (bench.py:229-270),
+    drawn from the same seed in the same order, for the templates whose
+    level-0 (width, height) are ``whs0`` (N, 2).
+
+    Returns ``fields``: the six ``RefineBank`` arrays (box-surface clouds of
+    512 points about 10 cm across, all valid, chroma, centroids, bbox =
+    the template size, identity base poses); ``win``: the median window
+    (not capped at 192, as bench.py builds it); ``K``: the camera;
+    ``icp``: ``IcpConfig(max_iters=16)``; ``max_refine``: 8; and
+    ``verify_pts`` (mm) / ``verify_colors``: the first cloud and random
+    colors.
+    """
+    rng = np.random.default_rng(seed)
+    whs0 = np.asarray(whs0)
+    n_tmpl, n_pts = len(whs0), 512
+    face = rng.integers(0, 3, (n_tmpl, n_pts))
+    sgn = rng.choice([-1.0, 1.0], (n_tmpl, n_pts))
+    cl = rng.uniform(-0.05, 0.05, (n_tmpl, n_pts, 3)).astype(np.float32)
+    for ax in range(3):
+        m = face == ax
+        cl[..., ax] = np.where(m, 0.05 * sgn, cl[..., ax]).astype(np.float32)
+    chroma = rng.uniform(0.2, 0.4, (n_tmpl, n_pts, 2)).astype(np.float32)
+    fields = (
+        cl,
+        np.ones((n_tmpl, n_pts), bool),
+        chroma,
+        cl.mean(1),
+        whs0.astype(np.int32),
+        np.tile(np.eye(4, dtype=np.float32), (n_tmpl, 1, 1)),
+    )
+    win = (int(-(-(whs0[:, 1].max() + 1) // 16) * 16), int(-(-(whs0[:, 0].max() + 1) // 16) * 16))
+    return {
+        "fields": fields,
+        "win": win,
+        "K": BENCH_K.copy(),
+        "icp": IcpConfig(max_iters=16),
+        "max_refine": 8,
+        "verify_pts": (cl[0] * 1000.0).astype(np.float32),
+        "verify_colors": rng.integers(60, 220, (n_pts, 3)).astype(np.float32),
+    }
 
 
 def planted_object(shape_id: int, size: int = OBJECT_SIZE, seed: int = 5):

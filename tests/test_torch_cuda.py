@@ -1,14 +1,17 @@
 """Tests of the port that need a CUDA card (marker ``cuda``).
 
 The local-refine kernel against its plain version on the card, the
-wrapper's input checks, and the detector on the card against its CPU run.
+wrapper's input checks, the detector on the card against its CPU run, and
+the scene maps, batched ICP, verification and the fused detect+refine frame
+on the card against their CPU runs.
 They import neither JAX nor the JAX package, so a GPU machine without JAX
 runs them apart from the suite's conftest (which imports JAX):
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Without a card each test skips.  Scores are sums of small integers in
-float32 and counts are integers, so every comparison is exact.
+float32 and counts are integers, so every comparison of the matcher is
+exact; the refine tests state their tolerances below.
 """
 
 import os
@@ -144,3 +147,135 @@ def test_planted_golden_on_card(cuda):
     np.testing.assert_array_equal(keep, g["keep"])
     for a, name in ((tid, "tid"), (x, "x"), (y, "y"), (score, "score")):
         np.testing.assert_array_equal(a[live], g[name][live])
+
+
+# -- refine and verify (models/refine.py, models/pipeline.py) ----------------
+#
+# GPU against the port's CPU run: integers (tid, x, y, score, active)
+# exactly; R per entry 1e-4, t 1e-4 m (0.1 mm), fitness and verify 2 / N of
+# their N points.  Every sum on that path is a fixed-order tree of adds and
+# the transcendental functions run in float64, so the two runs are expected
+# to agree to the bit; the tolerances are those of the CPU parity tests.
+
+
+def _view_cloud(k=6, n=400, seed=0):
+    """Training view 0 (VGA) as the scene, K copies of its object's cloud
+    (with chroma) offset by up to 4 mm."""
+    from sixdpose_tpu_torch.models.refine import sample_model_points
+
+    rgb, depth, mask = synthetic.training_view(0)
+    obj = np.where(mask > 0, depth, 0).astype(np.uint16)
+    pts, val, (ys, xs) = sample_model_points(obj, synthetic.BENCH_K, n, return_pixels=True)
+    cols = rgb[ys, xs].astype(np.float32)
+    chroma = np.zeros((n, 2), np.float32)
+    chroma[: len(cols)] = cols[:, :2] / np.maximum(cols.sum(-1, keepdims=True), 1e-6)
+    init = np.tile(np.eye(4, dtype=np.float32), (k, 1, 1))
+    init[:, :3, 3] = np.random.default_rng(seed).uniform(-0.004, 0.004, (k, 3))
+    stack = lambda a: np.ascontiguousarray(np.broadcast_to(a, (k,) + a.shape))  # noqa: E731
+    return rgb, depth, stack(pts), stack(val), stack(chroma), init, cols
+
+
+def _scene_maps(rgb, depth, device):
+    from sixdpose_tpu_torch.models import refine as TR
+
+    K = torch.from_numpy(synthetic.BENCH_K).to(device)
+    sp = TR.backproject(torch.from_numpy(depth.astype(np.int32)).to(device), K)
+    return sp, TR.scene_normals(sp), TR.scene_chroma(torch.from_numpy(rgb).to(device)), K
+
+
+def _close(gpu, cpu, atol):
+    return all(float((g.cpu() - c).abs().max()) <= a for g, c, a in zip(gpu, cpu, atol))
+
+
+def test_scene_maps_and_icp_batch_on_card_equal_cpu(cuda):
+    from sixdpose_tpu_torch.models import refine as TR
+
+    rgb, depth, pts, val, chroma, init, _ = _view_cloud()
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        sp, sn, chroma_maps, K = _scene_maps(rgb, depth, device)
+        args = [torch.from_numpy(a).to(device) for a in (pts, val, init, chroma)]
+        out[device.type] = (sp, sn, *chroma_maps), TR.icp_batch(
+            args[0], args[1], sp, sn, K, args[2], max_iters=16, model_chroma=args[3], chroma_maps=chroma_maps,
+            color_weight=0.1,
+        )
+    torch.cuda.synchronize()
+    maps_gpu, (T, fit, rmse) = out["cuda"]
+    maps_cpu, (T_c, fit_c, rmse_c) = out["cpu"]
+    assert all(torch.equal(g.cpu(), c) for g, c in zip(maps_gpu, maps_cpu))
+    assert _close((T[:, :3, :3], T[:, :3, 3], fit, rmse), (T_c[:, :3, :3], T_c[:, :3, 3], fit_c, rmse_c),
+                  (1e-4, 1e-4, 2.0 / pts.shape[1], 1e-6))
+    assert (fit_c > 0.8).all()
+
+
+@pytest.mark.parametrize("zscore", [False, True])
+def test_verify_poses_multi_on_card_equals_cpu(cuda, zscore):
+    from sixdpose_tpu_torch.models import refine as TR
+
+    rgb, depth, pts, val, _, init, cols = _view_cloud(k=5, seed=3)
+    rng = np.random.default_rng(4)
+    val = val.copy()
+    val[1, 200:] = False
+    pts_mm = (pts * 1000.0).astype(np.float32)
+    colors = np.zeros(pts.shape, np.float32)
+    colors[:, : len(cols)] = cols
+    Rs = np.tile(np.eye(3, dtype=np.float32), (5, 1, 1))
+    ts = (init[:, :3, 3] * 1000.0).astype(np.float32)
+    ts[2, 2] += 200.0  # behind the surface
+    ts[3] = rng.uniform(-30, 30, 3)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        K = torch.from_numpy(synthetic.BENCH_K).to(device)
+        a = [torch.from_numpy(x).to(device) for x in (pts_mm, val, Rs, ts, depth.astype(np.int32), colors, rgb)]
+        out[device.type] = TR.verify_poses_multi(
+            a[0], a[1], a[2], a[3], a[4], K, model_colors=a[5], rgb=a[6], color_zscore=zscore
+        )
+    assert _close((out["cuda"],), (out["cpu"],), (2.0 / pts.shape[1],))
+    assert float(out["cpu"][0]) > 0.8 and float(out["cpu"][2]) == 0.0
+
+
+def _bench_refine(device, num_templates=8):
+    from sixdpose_tpu_torch.convert import refine_bank_from_numpy
+
+    cid, templates, rgb, dep = synthetic.bench_bank(num_templates=num_templates)
+    det = Detector(DetectorConfig(t_at_level=(5, 8)), device=device)
+    for tl in templates:
+        det.bank.add_template_levels(cid, tl)
+    bank = det.device_bank(cid)
+    b = synthetic.bench_refine_bank(bank.whs[0].cpu().numpy())
+    rb = refine_bank_from_numpy(b["fields"], b["win"], device)
+    K, vp, vc = (torch.from_numpy(b[n]).to(device) for n in ("K", "verify_pts", "verify_colors"))
+    images = torch.from_numpy(rgb).to(device), torch.from_numpy(dep.astype(np.int32)).to(device)
+    return images, (bank, det.cfg), (rb, b["icp"], K, b["max_refine"], vp, vc)
+
+
+def test_detect_refine_core_on_card_equals_cpu(cuda):
+    """A cut bench workload (8 templates) with bench.py's refine stage at
+    VGA, thresholds 75 and 30; the refine kernel ran."""
+    from sixdpose_tpu_torch.models.pipeline import detect_refine_core
+
+    gpu, cpu = _bench_refine(cuda), _bench_refine(torch.device("cpu"))
+    before = LR.similarity_local_sparse_cuda.launches
+    for thr in (75.0, 30.0):
+        g = detect_refine_core(*gpu[0], *gpu[1], thr, *gpu[2])
+        c = detect_refine_core(*cpu[0], *cpu[1], thr, *cpu[2])
+        assert all(torch.equal(a.cpu(), b) for a, b in zip((g[0], g[1], g[2], g[3], g[8]), (c[0], c[1], c[2], c[3], c[8])))
+        assert _close((g[4], g[5], g[6], g[7]), (c[4], c[5], c[6], c[7]), (1e-4, 0.1, 2.0 / 512, 2.0 / 512))
+    assert bool(c[8].all())  # 8 active at threshold 30
+    assert LR.similarity_local_sparse_cuda.launches == before + 2
+
+
+def test_detect_refine_core_waits_for_nothing(cuda):
+    """Nothing in a fused frame waits for the device: every synchronizing
+    CUDA call raises in this mode."""
+    from sixdpose_tpu_torch.models.pipeline import detect_refine_core
+
+    gpu = _bench_refine(cuda)
+    detect_refine_core(*gpu[0], *gpu[1], 30.0, *gpu[2])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = detect_refine_core(*gpu[0], *gpu[1], 30.0, *gpu[2])
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert bool(out[8].cpu().all())

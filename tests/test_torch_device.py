@@ -54,3 +54,39 @@ def test_resolve_device_names():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             resolve_device("cuda:0")
+
+
+def test_refine_entry_points_default_to_the_card(monkeypatch):
+    """FusedPipeline, build_refine_bank, PoseRefiner and refine_poses raise
+    the same RuntimeError without CUDA unless the CPU is asked for."""
+    from sixdpose_tpu_torch import synthetic
+    from sixdpose_tpu_torch.models import pipeline as TP
+    from sixdpose_tpu_torch.models import refine as TR
+
+    rgb, mask = _view()
+    depth = np.where(mask > 0, 800, 900).astype(np.uint16)
+    det = Detector(CFG, device="cpu")
+    info = {
+        "icp_points": np.random.default_rng(0).uniform(-0.02, 0.02, (64, 3)).astype(np.float32),
+        "cam_R_w2c": np.eye(3), "cam_t_w2c": np.zeros((3, 1)), "render_bbox": np.array([42, 26, 86, 70]),
+    }
+    assert det.bank.add_template("obj", rgb, None, mask, info, device="cpu") == 0
+    K = synthetic.BENCH_K
+    model = np.where(mask > 0, 800, 0).astype(np.uint16)
+    init = np.eye(4, dtype=np.float32)[None]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "FusedPipeline": lambda **kw: TP.FusedPipeline(det, "obj", K, max_refine=2, **kw),
+        "build_refine_bank": lambda **kw: TP.build_refine_bank(det, "obj", **kw),
+        "PoseRefiner": lambda **kw: TR.PoseRefiner(**kw),
+        "refine_poses": lambda **kw: TR.refine_poses(depth, K, model[None], K, init, **kw),
+    }
+    messages = {}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA") as err:
+            call()
+        messages[name] = str(err.value)
+        call(device="cpu")
+    assert len(set(messages.values())) == 1, messages
+    out = TP.FusedPipeline(det, "obj", K, max_refine=2, device="cpu")(rgb, depth, 50.0)
+    assert out[4].device.type == "cpu" and out[4].shape == (2, 3, 3)
