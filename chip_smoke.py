@@ -2,14 +2,26 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths at the full width of the JAX package's bench
-workload (VGA RGB-D, 89 templates x 2 modalities, ``t_at_level=(5, 8)``,
-top_k 128): single-class template matching (``detect_frame_core`` through
-``Detector``) and the fused detect -> refine -> verify frame
-(``detect_refine_core``, with bench.py's refine stage: 8 candidates x
-512-point clouds, 16 ICP iterations, the colored term, 512-point
-verification), and checks every result.  One JSON line per phase; a
-failing phase raises, so the script exits non-zero:
+Drives the port's main paths, and checks every result:
+
+- at the full width of the JAX package's bench workload (VGA RGB-D, 89
+  templates x 2 modalities, ``t_at_level=(5, 8)``, top_k 128):
+  single-class template matching (``detect_frame_core`` through
+  ``Detector``) and the fused detect -> refine -> verify frame
+  (``detect_refine_core``, with bench.py's refine stage: 8 candidates x
+  512-point clouds, 16 ICP iterations, the colored term, 512-point
+  verification);
+- at the full width of the JAX package's synthetic benchmark
+  (``SYNTH_r05.json``: 9 classes x 810 templates in one bank, 320 x 240
+  RGB-D, ``t_at_level=(4, 8)``, top_k 128, 96 hypotheses per class, 4
+  seeds, 20 ICP iterations, drawn by ``synthetic.multiclass_workload``):
+  the multi-class match (``MultiClassMatcher``, whose coarse level, at
+  2.7e10 multiply-adds, takes the shift-bucketed matmul scorer) and the
+  fused multi-class frame (``FusedMultiClassPipeline``: 3456 ICP
+  candidates).
+
+One JSON line per phase; a failing phase raises, so the script exits
+non-zero:
 
 1. env: versions, device, ``nvidia-smi`` name and power limit;
 2. build: compiles every kernel in ``sixdpose_tpu_torch/csrc`` with nvcc;
@@ -19,22 +31,34 @@ failing phase raises, so the script exits non-zero:
    ``match_batch_arrays``, with the kernels' launch counts set to 0 just
    before and read just after; the GPU results must equal the port's CPU
    results (plain versions) and the batch the single-frame calls;
-4. kernel_parity: the local-refine kernel against its plain version on the
+4. match_mc: ``MultiClassMatcher`` on the multi-class workload at 55 and
+   at 30 (every class fills its 128 candidates: a pool of 1152 in one
+   refine launch), launch counts set to 0 just before and read just after;
+   the coarse branch taken and its multiply-adds; equal to the CPU run;
+5. kernel_parity: the local-refine kernel against its plain version on the
    card, exactly, at the shapes of tests/test_pallas.py, at F = 700, at the
    levelup maximum F = 8191 and at F = 9000 (two table passes), and at the
-   inputs the main path gave it;
-5. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
+   inputs the main paths gave it (bench B=1 and B=4, the multi-class pool);
+6. coarse_matmul: the matmul scorer on the card against its CPU run and
+   against the dense conv of kernels built from the same features, at the
+   full-width bank (scale 1, and four scales one of them 0), and at the
+   LINEMOD-scale VGA call (15 x 337 templates, about 2e11 multiply-adds;
+   against the conv on the card only);
+7. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
-6. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
+8. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
    75 (as bench.py) and 30 (8 live candidates refine), with the kernels'
    launch counts set to 0 just before and read just after, and one more
    frame under ``torch.cuda.set_sync_debug_mode("error")`` (nothing may
    wait for the device); the GPU results must equal the port's CPU results
    within the tolerances of ``FUSED_TOL``;
-7. refine_golden: ``FusedPipeline`` on the card against the JAX golden of
-   the fused pipeline on the planted-object scene, and its top pose moves
-   the object by the planted shift;
-8. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+9. refine_mc: the same for ``FusedMultiClassPipeline`` on the multi-class
+   workload at 55 and 30 (96 active hypotheses per class);
+10. refine_golden and mc_golden: ``FusedPipeline`` and the multi-class
+   match and ``FusedMultiClassPipeline`` on the card against the JAX
+   goldens of the planted scenes, each planted object's top pose moving it
+   by its planted shift;
+11. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -43,15 +67,20 @@ failing phase raises, so the script exits non-zero:
    main path's B=1 level-0 call, its B=4 call and a K=1020, F=136 pool,
    with the rate at which the kernel moves the L2 sectors its gather
    requests; at the B=1 call also one PyTorch library call computing the
-   same function;
-9. profile: torch.profiler's split of a B=1 match frame and of a B=1
-   detect+refine frame into device kernels and host ops, and the device's
-   idle share;
-10. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
-   source, the TPU kernels it replaces, its launches in phase 6 (and per
-   phase in phases 3 and 6), its error against the plain version, and its
-   time beside the plain version's, the library call's and the bound; then
-   the ``nvidia-smi`` line again.
+   same function.  Under ``multiclass``: the multi-class match frame and
+   the fused multi-class frame (whole and by stage, with bounds), the
+   kernel at the multi-class call, and the matmul scorer at full width and
+   at the LINEMOD-scale call beside its bound, the dense conv and the same
+   product as one ``torch.matmul``;
+12. profile, profile_refine, profile_mc: torch.profiler's split of a B=1
+   match frame, of a B=1 detect+refine frame and of a fused multi-class
+   frame into device kernels and host ops, and the device's idle share;
+13. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+   source, the TPU kernels it replaces, its launches in the main paths'
+   phases (in all and per phase), its error against the plain version, and
+   its time beside the plain version's, the library call's and the bound
+   (at the bench B=1 call and at the multi-class call); then the
+   ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script prints no result and exits 2.
@@ -76,14 +105,23 @@ from sixdpose_tpu_torch.convert import refine_bank_from_numpy
 from sixdpose_tpu_torch.models import detector as D
 from sixdpose_tpu_torch.models import pipeline as P
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
-from sixdpose_tpu_torch.models.pipeline import FusedPipeline, detect_refine_core
+from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
+from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import local_refine as LR
+from sixdpose_tpu_torch.ops import similarity as S
 from sixdpose_tpu_torch.ops.similarity import (
+    _bucket_slices,
+    _bucket_weights,
     _feature_table,
     _local_conv_operands,
+    _s2d_maps,
+    bucket_table,
+    build_template_kernels,
+    similarity_dense,
     similarity_local,
     similarity_local_sparse,
+    similarity_multiscale_matmul,
 )
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -225,7 +263,7 @@ def _run(fn, c):
     return fn(c["maps"], c["feats"], c["valid"], c["origins"], c["t"], c["window"], c["scale"], c["active"])
 
 
-def phase_kernel_parity(dev, calls):
+def phase_kernel_parity(dev, calls, mc_calls):
     t0 = time.perf_counter()
     rng = np.random.default_rng(42)
     cases = {
@@ -245,6 +283,7 @@ def phase_kernel_parity(dev, calls):
     cases["two_passes_K3_F9000_scale_active"] = _random_case(rng, dev, 16, 480, 640, 5, 3, 9000, True, with_active=True)
     cases["main_path_B1"] = next(c for c in calls if c["maps"].shape[0] == 1)
     cases["main_path_B4"] = next(c for c in calls if c["maps"].shape[0] == 4)
+    cases["multiclass_pool_K1152"] = mc_calls[-1]  # the full-width multi-class call at LOW_THRESHOLD
     results = {}
     max_err = 0.0
     for name, c in cases.items():
@@ -370,6 +409,246 @@ def phase_refine_golden(dev):
          planted_shift_mm=g["planted_shift_mm"].tolist(), miss_mm=miss)
 
 
+# -- every class of a bank: the multi-class match and fused frame ------------
+
+
+def flat_classes(out):
+    """(C, R, ...) results of the fused multi-class frame as (C * R, ...)."""
+    return [a.reshape(-1, *a.shape[2:]) for a in out]
+
+
+def multiclass_setup(dev):
+    """The synthetic benchmark's multi-class workload at full width
+    (``synthetic.multiclass_workload``: 9 classes x 810 templates, 320 x
+    240), its detector, and its matcher and fused pipeline on the card and
+    on the CPU."""
+    t0 = time.perf_counter()
+    w = synthetic.multiclass_workload()
+    det = synthetic.multiclass_detector(w, dev)
+    args = synthetic.multiclass_pipeline_args(w)
+    mc = {d: MultiClassMatcher(det, device=d) for d in (dev, "cpu")}
+    pipes = {d: FusedMultiClassPipeline(det, w["K"], device=d, **args) for d in (dev, "cpu")}
+    return w, mc[dev], mc["cpu"], pipes[dev], pipes["cpu"], time.perf_counter() - t0
+
+
+def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
+    """``MultiClassMatcher`` on the full-width workload at 55 and at
+    LOW_THRESHOLD, where every class fills its top_k candidates; equal to
+    the port's CPU run everywhere."""
+    t0 = time.perf_counter()
+    calls: list = []
+    matmul_calls = []
+    original = D.similarity_multiscale_matmul
+
+    def counting(*args):
+        matmul_calls.append(args[4:])
+        return original(*args)
+
+    thresholds = (w["threshold"], LOW_THRESHOLD)
+    LR.similarity_local_sparse_cuda.launches = 0
+    D.similarity_multiscale_matmul = counting
+    try:
+        with recording_refine_calls(calls):
+            gpu = {thr: mc.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
+            matches = {thr: mc.match(w["rgb"], w["depth"], thr) for thr in thresholds}
+            torch.cuda.synchronize()
+    finally:
+        D.similarity_multiscale_matmul = original
+    launches = LR.similarity_local_sparse_cuda.launches
+    check(launches == len(calls) == 2 * len(thresholds) and launches > 0, f"refine launches {launches} for {len(calls)} calls")
+    kern = mc.bank.kernels[-1]
+    coarse = len(w["cfg"].t_at_level) - 1
+    maps_shape = (16,) + tuple(s >> coarse for s in w["rgb"].shape[:2])
+    macs = D.coarse_macs(maps_shape, kern.shape, w["cfg"].t_at_level[-1])
+    branch = "matmul" if macs > D._MATMUL_MACS else "dense"
+    check(len(matmul_calls) == (2 * len(thresholds) if branch == "matmul" else 0),
+          f"coarse branch {branch} at {macs} MACs, {len(matmul_calls)} matmul scorer calls")
+    cpu = {thr: mc_cpu.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
+    for thr in thresholds:
+        check(all(torch.equal(g.cpu(), c) for g, c in zip(gpu[thr], cpu[thr])),
+              f"MultiClassMatcher on the GPU differs from the CPU at threshold {thr}")
+    live = {str(thr): (gpu[thr][3] >= 0).sum(1).tolist() for thr in thresholds}
+    check(min(live[str(LOW_THRESHOLD)]) == w["cfg"].top_k, f"not every class fills its candidates at {LOW_THRESHOLD}: {live}")
+    emit("match_mc", t0, setup_seconds=round(setup_s, 3), classes=len(mc.class_ids), templates=int(mc.bank.nfeats[0].numel()),
+         frame=list(w["rgb"].shape), coarse_branch=branch, coarse_conv_macs=macs, macs_line=D._MATMUL_MACS,
+         launches=launches, live_into_kernel=[int(c["active"].sum()) for c in calls],
+         kernel_call={"maps": list(calls[-1]["maps"].shape), "feats": list(calls[-1]["feats"].shape), "t": calls[-1]["t"]},
+         thresholds=list(thresholds), live_per_class=live, matches={str(t): len(m) for t, m in matches.items()},
+         gpu_equals_cpu=True)
+    return calls, launches
+
+
+def scorer_bound(maps, feats, nfeat, ho_wo: int) -> dict:
+    """Least bytes and operations of one call of the matmul scorer on these
+    inputs: the maps, feature lists, masks and scales read once, the raw
+    scores and counts written once; one add per valid feature and placement
+    (the sparse product this data needs).  Also the float32 floor of the
+    dense per-bucket matmuls it runs instead (``dense_matmul_floor_ms``)."""
+    sn = nfeat.numel()
+    nbytes = maps.numel() + feats.numel() * 4 + feats.shape[0] * feats.shape[1] + 4 + sn * (ho_wo * 4 + 4)
+    ops = int(nfeat.sum()) * ho_wo
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
+    return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_scorer(maps, feats, valid, kern, t: int) -> dict:
+    """The matmul scorer at scale 1 on one call's inputs (CUDA events over
+    whole eager calls), beside its bound, the dense conv it stands in for,
+    and the same product as one ``torch.matmul`` (W as one (S*N, bh*ct2)
+    matrix against the stacked bucket slices)."""
+    kh, kw = kern.shape[-2:]
+    one = torch.ones((1,), dtype=torch.float32, device=maps.device)
+    raw, nf = similarity_multiscale_matmul(maps, feats, valid, one, t, kh, kw)
+    khb, kwb = -(-kh // t), -(-kw // t)
+    s2d = _s2d_maps(maps[None], t)
+    slices = _bucket_slices(s2d, khb, kwb)
+    bh, ct2, p = slices.shape
+    w = _bucket_weights(*bucket_table(feats, valid, one, t, kh, kw), bh, ct2)
+    lhs, rhs = w.transpose(0, 1).reshape(w.shape[1], bh * ct2), slices.reshape(bh * ct2, p)
+    check(torch.equal(torch.matmul(lhs, rhs).reshape(raw.shape), raw), "one matmul of the same product differs")
+    bound = scorer_bound(maps, feats, nf, p)
+    dense_flops = 2 * bh * w.shape[1] * ct2 * p
+    bound["dense_matmul_floor_ms"] = dense_flops / FP32_OPS_PER_S * 1e3
+    return {
+        "maps": list(maps.shape), "templates": int(feats.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
+        "buckets": bh, "w_bytes": w.numel() * 4,
+        "scorer_ms": cuda_ms(lambda: similarity_multiscale_matmul(maps, feats, valid, one, t, kh, kw), reps=10),
+        "dense_conv_ms": cuda_ms(lambda: similarity_dense(maps, kern, t), reps=10),
+        "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=10),
+        "bound": bound,
+    }
+
+
+def linemod_scale_case(dev, n: int = 15 * 337):
+    """The LINEMOD-scale coarse call the JAX comments size the matmul scorer
+    for (15 classes x 337 templates, VGA, ``sixdpose_tpu/models/
+    multiclass.py:80``): level-1 response maps of a VGA frame (the bench
+    frame's), ``n`` templates of 32 features in a 46 x 46 extent, t = 8
+    (about 2e11 multiply-adds as a dense conv)."""
+    cid, templates, rgb, dep = synthetic.bench_bank(num_templates=1)
+    det = Detector(BENCH_CFG, device=dev)
+    det.bank.add_template_levels(cid, templates[0])
+    maps = det.build_response_pyramid(rgb, dep)[1]
+    rng = np.random.default_rng(15)
+    f, ext = 32, 46
+    feats = np.stack([rng.integers(0, ext, (n, f)), rng.integers(0, ext, (n, f)), rng.integers(0, 16, (n, f))], -1)
+    valid = rng.random((n, f)) < 0.95
+    kern = build_template_kernels(feats, valid, ext, ext, 16)
+    to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return maps, to(feats.astype(np.int32)), to(valid), to(kern)
+
+
+def phase_coarse_matmul(dev, w, mc, mc_cpu):
+    """The matmul scorer on the card against its CPU run and against the
+    dense conv of kernels built from the same features: at the full-width
+    bank (scale 1, and four scales one of them 0, which takes two row
+    chunks of W), and at the LINEMOD-scale VGA call (card only)."""
+    t0 = time.perf_counter()
+    maps = mc.response_pyramid(w["rgb"], w["depth"])[-1]
+    t_c = w["cfg"].t_at_level[-1]
+    feats, valid, kern = mc.bank.feats[-1], mc.bank.valids[-1], mc.bank.kernels[-1]
+    kh, kw = kern.shape[-2:]
+    results = {}
+    for name, scales in (("full_width_scale1", [1.0]), ("full_width_4_scales", [0.8, 1.0, 0.0, 1.2])):
+        sc = torch.tensor(scales, dtype=torch.float32)
+        g = similarity_multiscale_matmul(maps, feats, valid, sc.to(dev), t_c, kh, kw)
+        c = similarity_multiscale_matmul(maps.cpu(), mc_cpu.bank.feats[-1], mc_cpu.bank.valids[-1], sc, t_c, kh, kw)
+        check(torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1]), f"matmul scorer GPU differs from CPU ({name})")
+        n = feats.shape[0]
+        i1 = scales.index(1.0) * n
+        dense = similarity_dense(maps, kern, t_c)
+        check(torch.equal(g[0][i1 : i1 + n], dense), f"matmul scorer differs from the dense conv at scale 1 ({name})")
+        if 0.0 in scales:
+            i0 = scales.index(0.0) * n
+            check(not g[0][i0 : i0 + n].any() and not g[1][i0 : i0 + n].any(), "scale 0 scored something")
+        chunk_rows = S._W_CHUNK_BYTES // (-(-kh // t_c) * -(-kw // t_c) * maps.shape[0] * t_c * t_c * 4)
+        results[name] = {"raw": list(g[0].shape), "w_chunks": -(-g[0].shape[0] // chunk_rows), "gpu_equals_cpu": True,
+                         "scale1_equals_dense": True}
+    lm_maps, lm_feats, lm_valid, lm_kern = linemod_scale_case(dev)
+    lm = similarity_multiscale_matmul(lm_maps, lm_feats, lm_valid, torch.ones(1, device=dev), 8, *lm_kern.shape[-2:])
+    check(torch.equal(lm[0], similarity_dense(lm_maps, lm_kern, 8)), "LINEMOD-scale matmul scorer differs from the dense conv")
+    macs = D.coarse_macs(lm_maps.shape, lm_kern.shape, 8)
+    results["linemod_15x337_vga_scale1"] = {"raw": list(lm[0].shape), "coarse_conv_macs": macs, "equals_dense": True}
+    torch.cuda.synchronize()
+    emit("coarse_matmul", t0, tolerance="exact (integer sums in float32)", cases=results)
+    return (maps, feats, valid, kern, t_c), (lm_maps, lm_feats, lm_valid, lm_kern, 8)
+
+
+def phase_refine_mc(dev, w, pipe, pipe_cpu):
+    """``FusedMultiClassPipeline`` on the full-width workload (9 classes x
+    96 hypotheses x 4 seeds = 3456 ICP candidates) at 55 and at
+    LOW_THRESHOLD, against the port's CPU run, and one more frame under
+    ``set_sync_debug_mode("error")``."""
+    t0 = time.perf_counter()
+    rgb, dep = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
+    thresholds = (w["threshold"], LOW_THRESHOLD)
+    LR.similarity_local_sparse_cuda.launches = 0
+    gpu = {thr: pipe(rgb, dep, thr) for thr in thresholds}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        unsynced = pipe(rgb, dep, LOW_THRESHOLD)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    launches = LR.similarity_local_sparse_cuda.launches
+    check(launches == len(thresholds) + 1, f"{launches} refine kernel launches in {len(thresholds) + 1} frames")
+    gpu_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    cpu = {thr: pipe_cpu(w["rgb"], w["depth"], thr) for thr in thresholds}
+    cpu_s = (time.perf_counter() - t1) / len(thresholds)
+    n_pts, n_ver = w["num_points"], min(len(v) for v in w["verify_pts"].values())
+    diffs = {str(thr): fused_diff(flat_classes(gpu[thr]), flat_classes(cpu[thr]), n_pts, n_ver) for thr in thresholds}
+    for thr, d in diffs.items():
+        check(d["within_tol"], f"detect_refine_multiclass_core on the GPU differs from the CPU at threshold {thr}: {d}")
+    active = {str(thr): gpu[thr][8].sum(1).tolist() for thr in thresholds}
+    check(min(active[str(LOW_THRESHOLD)]) == w["max_refine"], f"not {w['max_refine']} active per class: {active}")
+    rerun = fused_diff(flat_classes(unsynced), flat_classes(gpu[LOW_THRESHOLD]), n_pts, n_ver)
+    check(rerun["bitwise"], "a second GPU run of the same frame differs")
+    c_n = len(pipe.class_ids)
+    emit("refine_mc", t0, launches=launches, thresholds=list(thresholds),
+         icp_candidates=c_n * w["max_refine"] * w["icp_seeds"], active_per_class=active, gpu_vs_cpu=diffs,
+         tolerance=FUSED_TOL, sync_free_frame=True, rerun_bitwise_equal=True, gpu_seconds_3_frames=gpu_s,
+         cpu_seconds_per_frame=cpu_s,
+         verify_low_class0=[round(float(v), 4) for v in gpu[LOW_THRESHOLD][7][0, :8].cpu()])
+    return launches
+
+
+def phase_mc_golden(dev):
+    """The planted multi-class golden of ``tools/torch_port_mc_golden.py``
+    on the card: the match (live entries equal) and the fused frame (within
+    ``FUSED_TOL``, each planted class's top pose at its planted shift)."""
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(TESTDATA, "planted_mc_golden.npz"))
+    cids = [str(c) for c in g["class_ids"]]
+    cfg = DetectorConfig(t_at_level=tuple(int(v) for v in g["t_at_level"]))
+    det = Detector.read_classes(os.path.join(TESTDATA, "planted_mc_bank.npz"), cfg, device=dev)
+    rgb, depth = synthetic.planted_scene_multi([tuple(p) for p in g["placements"].tolist()], seed=int(g["scene_seed"]))
+    out = MultiClassMatcher(det, cids, device=dev).match_arrays(rgb, depth, float(g["threshold"]))
+    golden = [g[k] for k in ("tid", "x", "y", "score", "keep")]
+    check(same_live(golden, out), "the multi-class match differs from the JAX golden")
+    counts = g["verify_count"]
+    pipe = FusedMultiClassPipeline(
+        det, g["K"], class_ids=cids, icp=IcpConfig(max_iters=int(g["icp_max_iters"])), max_refine=int(g["max_refine"]),
+        num_points=int(g["num_points"]), icp_seeds=int(g["icp_seeds"]), seed_flip=bool(g["seed_flip"]),
+        verify_pts={c: g["verify_pts"][i, : counts[i]] for i, c in enumerate(cids)},
+        verify_colors={c: g["verify_colors"][i, : counts[i]] for i, c in enumerate(cids)}, device=dev,
+    )
+    fused = [a.cpu().numpy() for a in pipe(rgb, depth, float(g["refine_threshold"]))]
+    d = fused_diff(flat_classes([g[f"fused_{k}"] for k in FUSED]), flat_classes(fused), int(g["num_points"]), int(counts.min()))
+    check(d["within_tol"] and d["active"] >= 3, f"the fused multi-class frame differs from the JAX golden: {d}")
+    misses = {}
+    for (ci, _, _), shift in zip(g["placements"], g["planted_shift_mm"]):
+        top = int(np.flatnonzero(fused[8][ci])[0])
+        c = det.bank.infos[cids[ci]][0]["icp_points"].astype(np.float64).mean(0) * 1000.0
+        moved = fused[4][ci, top].astype(np.float64) @ c + fused[5][ci, top] - c
+        misses[cids[ci]] = float(np.linalg.norm(moved - shift))
+        check(fused[0][ci, top] == 0 and misses[cids[ci]] <= float(g["translation_tol_mm"]),
+              f"class {cids[ci]}'s top pose moves its object by {moved.tolist()} mm, planted {shift.tolist()}")
+    emit("mc_golden", t0, match_equals_jax=True, fused_vs_jax=d, miss_mm=misses)
+
+
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
     fn()
@@ -471,11 +750,13 @@ def time_refine(c) -> dict:
 
 
 @contextmanager
-def stage_events(marks: list):
-    """Record a CUDA event at each stage boundary of ``detect_refine_core``:
-    after the match, before the scene maps, and before and after ICP (the
-    pipeline module's own names, wrapped for the duration)."""
-    original = {n: getattr(P, n) for n in ("detect_frame_core", "backproject", "icp_batch")}
+def stage_events(marks: list, match: str = "detect_frame_core"):
+    """Record a CUDA event at each stage boundary of ``detect_refine_core``
+    (or, with ``match="match_multiclass_core"``, of
+    ``detect_refine_multiclass_core``): after the match, before the scene
+    maps, and before and after ICP (the pipeline module's own names,
+    wrapped for the duration)."""
+    original = {n: getattr(P, n) for n in (match, "backproject", "icp_batch")}
 
     def mark():
         event = torch.cuda.Event(enable_timing=True)
@@ -492,7 +773,7 @@ def stage_events(marks: list):
             return out
         return wrapped
 
-    P.detect_frame_core = wrap(original["detect_frame_core"], False, True)
+    setattr(P, match, wrap(original[match], False, True))
     P.backproject = wrap(original["backproject"], True, False)
     P.icp_batch = wrap(original["icp_batch"], True, True)
     try:
@@ -502,7 +783,7 @@ def stage_events(marks: list):
             setattr(P, name, fn)
 
 
-def stage_ms(run, rgb, dep, threshold: float, reps: int) -> dict:
+def stage_ms(run, rgb, dep, threshold: float, reps: int, match: str = "detect_frame_core") -> dict:
     """Median ms of each of ``STAGES`` of a detect+refine frame over ``reps``
     frames, between CUDA events recorded at the stage boundaries."""
     run(rgb, dep, threshold)
@@ -511,7 +792,7 @@ def stage_ms(run, rgb, dep, threshold: float, reps: int) -> dict:
     for _ in range(reps):
         marks: list = []
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with stage_events(marks):
+        with stage_events(marks, match):
             start.record()
             run(rgb, dep, threshold)
             end.record()
@@ -532,19 +813,17 @@ SCENE_MAP_OPS_PER_PIXEL = 175
 ICP_OPS_PER_POINT_ITER = 850
 
 
-def refine_frame_bounds(h: int, w: int, b: dict) -> dict:
-    """Least time per frame on the card of the scene maps and of ICP for
-    this run's shapes: the larger of bytes over the memory rate and float
-    operations over the non-tensor float32 rate.
+def refine_frame_bounds(h: int, w: int, k: int, n: int, icp: IcpConfig) -> dict:
+    """Least time per frame on the card of the scene maps and of ICP of
+    ``k`` candidates of ``n`` points for this run's shapes: the larger of
+    bytes over the memory rate and float operations over the non-tensor
+    float32 rate.
 
     Scene maps read the int32 depth and the RGB once and write the packed
     (H*W, 7) scene table and the (H*W, 6) chroma table once.  ICP reads the
     clouds (points, validity, chroma) and both tables once (a run's taps
     touch fewer rows, so this overstates its bytes) and writes the poses.
     """
-    clouds = b["fields"][0]
-    k, n = b["max_refine"], clouds.shape[1]
-    icp = b["icp"]
     n_bi = max(0, min(icp.bilinear_iters, icp.max_iters))
     n_coarse = len(range(0, n, max(1, n // max(icp.coarse_points, 8))))
     point_iters = k * ((icp.max_iters - n_bi) * n_coarse + n_bi * n + n)
@@ -559,7 +838,34 @@ def refine_frame_bounds(h: int, w: int, b: dict) -> dict:
     return out
 
 
-def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage):
+def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
+    """CUDA-event medians of the full-width multi-class match frame and of
+    the fused multi-class frame (whole, and split by stage) at 55 and
+    LOW_THRESHOLD, beside per-frame bounds of the scene maps and ICP; the
+    kernel at the multi-class call; the matmul scorer at full width and at
+    the LINEMOD-scale call."""
+    rgb = torch.from_numpy(w["rgb"]).to(dev)
+    dep = torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
+    thresholds = (w["threshold"], LOW_THRESHOLD)
+    out = {
+        "match_frame_ms": {str(t): cuda_ms(lambda t=t: mc.match_arrays(rgb, dep, t), reps=10) for t in thresholds},
+        "fused_frame_ms": {str(t): cuda_ms(lambda t=t: pipe(rgb, dep, t), reps=5) for t in thresholds},
+        "fused_stage_ms": {str(t): stage_ms(pipe, rgb, dep, t, reps=5, match="match_multiclass_core") for t in thresholds},
+    }
+    k = len(pipe.class_ids) * w["max_refine"] * w["icp_seeds"]
+    bounds = refine_frame_bounds(*rgb.shape[:2], k, w["num_points"], w["icp"])
+    low = out["fused_stage_ms"][str(LOW_THRESHOLD)]
+    for stage in ("scene_maps", "icp"):
+        bounds[stage]["measured_ms_at_30"] = low[stage]
+        bounds[stage]["times_bound"] = low[stage] / bounds[stage]["bound_ms"]
+    out["fused_frame_bounds"] = bounds
+    out["icp_candidates"] = k
+    out["refine_kernel_K1152"] = time_refine(mc_call)
+    out["matmul_scorer"] = {"full_width": time_scorer(*full_case), "linemod_15x337_vga": time_scorer(*lm_case)}
+    return out
+
+
+def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, multiclass):
     t0 = time.perf_counter()
     bank = det.device_bank(cid)
     rgb1 = torch.from_numpy(frames[0]).to(dev)
@@ -574,7 +880,8 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage):
     thresholds = (75.0, LOW_THRESHOLD)
     refine_frame = {str(t): cuda_ms(lambda t=t: run(rgb1, dep1, t), reps=20) for t in thresholds}
     refine_stages = {str(t): stage_ms(run, rgb1, dep1, t, reps=10) for t in thresholds}
-    bounds = refine_frame_bounds(*rgb1.shape[:2], refine_stage)
+    bounds = refine_frame_bounds(*rgb1.shape[:2], refine_stage["max_refine"], refine_stage["fields"][0].shape[1],
+                                 refine_stage["icp"])
     low = refine_stages[str(LOW_THRESHOLD)]
     for stage in ("scene_maps", "icp"):
         bounds[stage]["measured_ms_at_30"] = low[stage]
@@ -607,10 +914,13 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage):
         detect_refine_core_stage_ms_B1=refine_stages,
         refine_frame_bounds=bounds,
         refine=refine,
+        multiclass=multiclass,
         method=("CUDA events, medians; detect_frame_core and detect_refine_core: whole eager calls (20, or 10 "
                 "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
-                "main path; kernel_eager_ms: the same 100 launches issued from Python"),
+                "main path; kernel_eager_ms: the same 100 launches issued from Python; multiclass: match frame 10, "
+                "fused frame and its stage split 5 whole eager calls, matmul scorer, dense conv and one matmul 10 "
+                "eager calls"),
     )
     b1 = refine["B1_level0"]
     return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
@@ -678,24 +988,38 @@ def main() -> int:
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
-    max_err, pool_case = phase_kernel_parity(dev, calls)
+    w, mc, mc_cpu, pipe, pipe_cpu, setup_s = multiclass_setup(dev)
+    mc_calls, mc_launches = phase_match_mc(dev, w, mc, mc_cpu, setup_s)
+    max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls)
+    full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
     phase_match_golden(dev)
     launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
+    mc_refine_launches = phase_refine_mc(dev, w, pipe, pipe_cpu)
     phase_refine_golden(dev)
-    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage)
+    phase_mc_golden(dev)
+    t0 = time.perf_counter()
+    multiclass = timing_multiclass(dev, w, mc, pipe, mc_calls[-1], full_case, lm_case)
+    multiclass["seconds"] = time.perf_counter() - t0
+    kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage,
+                                                    multiclass)
     bank = det.device_bank(cid)
     rgb, dep = frame_tensors(frames, depths, dev)
     run = refine_runner(cid, det, refine_stage, dev)
     phase_profile("profile", lambda: detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0))
     phase_profile("profile_refine", lambda: run(rgb, dep, LOW_THRESHOLD))
+    rgb_mc, dep_mc = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
+    phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD), n=3)
+    by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
+                "refine_mc": mc_refine_launches}
+    mc_kernel = multiclass["refine_kernel_K1152"]
 
     print(json.dumps({"kernels": [{
         "name": "local_refine",
         "route": "cuda",
         "source": "sixdpose_tpu_torch/csrc/local_refine.cu",
         "replaces": REPLACES,
-        "launches": launches,
-        "launches_by_phase": {"match_vga": match_launches, "refine_vga": launches},
+        "launches": sum(by_phase.values()),
+        "launches_by_phase": by_phase,
         "exact_vs_plain": True,
         "max_abs_err": max_err,
         "ms": kern_ms,
@@ -703,6 +1027,8 @@ def main() -> int:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": lib_ms,
+        "at_multiclass_call_K1152": {"ms": mc_kernel["kernel_ms"], "plain_ms": mc_kernel["plain_ms"],
+                                     "bound_ms": mc_kernel["bound"]["bound_ms"], "bound_by": mc_kernel["bound"]["bound_by"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

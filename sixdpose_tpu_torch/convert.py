@@ -7,6 +7,12 @@ with the same layouts and dtypes, and both read and write the same npz
 (``TemplateBank.save`` / ``load``, the templates' ``infos`` included), so a
 bank built by either feeds the other.  ``refine_bank_from_numpy`` does the
 same for the six arrays of a ``RefineBank``.
+
+For several classes at once, the ``multiclass_*`` functions build the
+superbanks of the multi-class matcher and of the fused multi-class frame
+from the per-class arrays (class-major, padded to common shapes), as the
+JAX package's ``MultiClassMatcher._build`` and ``FusedMultiClassPipeline``
+do.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+
+from sixdpose_tpu_torch.models.templates import BankLevel
 
 
 @dataclasses.dataclass(frozen=True)
@@ -91,3 +99,79 @@ def refine_bank_from_numpy(fields: Sequence, win: Tuple[int, int], device) -> Re
         base_T=_to(base_T, np.float32, device),
         win=(int(win[0]), int(win[1])),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiClassBank:
+    """Every class's bank as one superbank on a device.
+
+    bank:    the per-class ``DeviceBank`` arrays concatenated class-major
+      (global template ids), kernels zero-padded to the classes' largest
+      (KH, KW) and feature lists to their largest F, per level.
+    pad_map: (C, Nmax) int32 global id of each class's local template, -1
+      past the class's count.
+    nmax:    the largest class's template count.
+    """
+
+    bank: DeviceBank
+    pad_map: torch.Tensor
+    nmax: int
+
+
+def multiclass_bank_from_numpy(per_class: Sequence[Sequence], device) -> MultiClassBank:
+    """The superbank of the classes' per-level banks (``BankLevel``s of
+    either package, one list per class in class order), on ``device``."""
+    counts = [levels[0].kernels.shape[0] for levels in per_class]
+    merged = []
+    for l in range(len(per_class[0])):
+        lv = [levels[l] for levels in per_class]
+        khm = max(b.kernels.shape[2] for b in lv)
+        kwm = max(b.kernels.shape[3] for b in lv)
+        fm = max(b.feats.shape[1] for b in lv)
+        merged.append(BankLevel(
+            kernels=np.concatenate([
+                np.pad(b.kernels, ((0, 0), (0, 0), (0, khm - b.kernels.shape[2]), (0, kwm - b.kernels.shape[3])))
+                for b in lv
+            ]),
+            nfeat=np.concatenate([b.nfeat for b in lv]),
+            wh=np.concatenate([b.wh for b in lv]),
+            feats=np.concatenate([np.pad(b.feats, ((0, 0), (0, fm - b.feats.shape[1]), (0, 0))) for b in lv]),
+            valid=np.concatenate([np.pad(b.valid, ((0, 0), (0, fm - b.valid.shape[1]))) for b in lv]),
+        ))
+    pad_map = np.full((len(counts), max(counts)), -1, np.int32)
+    start = 0
+    for ci, cnt in enumerate(counts):
+        pad_map[ci, :cnt] = np.arange(start, start + cnt)
+        start += cnt
+    return MultiClassBank(bank_levels_from_numpy(merged, device), _to(pad_map, np.int32, device), max(counts))
+
+
+def multiclass_refine_bank_from_numpy(per_class: Sequence[Tuple[Sequence, Tuple[int, int]]], device) -> RefineBank:
+    """The global refine bank of several classes: each class's six
+    ``RefineBank`` arrays and median window ``(fields, win)``, in class
+    order, concatenated class-major (the global template order of
+    ``multiclass_bank_from_numpy``), with the largest window of each side.
+    Chroma is kept only if every class has it."""
+    fields = [f for f, _ in per_class]
+    has_chroma = all(f[2] is not None for f in fields)
+    cat = [np.concatenate([f[i] for f in fields]) if i != 2 or has_chroma else None for i in range(6)]
+    win = (max(w[0] for _, w in per_class), max(w[1] for _, w in per_class))
+    return refine_bank_from_numpy(cat, win, device)
+
+
+def multiclass_verify_points(pts: Sequence[np.ndarray], colors: Optional[Sequence[np.ndarray]], device):
+    """Each class's verification points (P_c, 3) mm and, if every class has
+    them, colours (P_c, 3), padded to the largest P: (points (C, P, 3)
+    float32, valid (C, P) bool, colours (C, P, 3) float32 or None) on
+    ``device``."""
+    p_max = max(len(p) for p in pts)
+    vp = np.zeros((len(pts), p_max, 3), np.float32)
+    vv = np.zeros((len(pts), p_max), bool)
+    vc = np.zeros((len(pts), p_max, 3), np.float32)
+    has_colors = colors is not None and all(c is not None for c in colors)
+    for ci, p in enumerate(pts):
+        vp[ci, : len(p)] = p
+        vv[ci, : len(p)] = True
+        if has_colors:
+            vc[ci, : len(p)] = colors[ci]
+    return _to(vp, np.float32, device), _to(vv, np.bool_, device), _to(vc, np.float32, device) if has_colors else None

@@ -5,7 +5,8 @@ linemodLevelup.cpp:1663-2010):
 
 - quantize each modality per pyramid level, spread, build response maps;
 - score every template of a class at every stride-T placement of the
-  coarsest level with one dense correlation;
+  coarsest level with one dense correlation, or for large banks with
+  shift-bucketed matmuls (``coarse_scores``);
 - keep a fixed top-K above the threshold (cpp:1836-1852) and re-score each
   candidate over a 16x16 placement window on the way down the pyramid
   (cpp:1854-1938) with the local-refine kernel;
@@ -36,12 +37,13 @@ from sixdpose_tpu_torch.ops.similarity import (
     score_normalize,
     similarity_dense,
     similarity_local_sparse_auto,
+    similarity_multiscale_matmul,
 )
 from sixdpose_tpu_torch.ops.spread import compute_response_maps, spread_orientations
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
 
-# Dense-conv size above which the JAX package scores the coarse level with
-# shift-bucketed matmuls (similarity_multiscale_matmul) instead.
+# Dense-conv size (multiply-adds) above which the coarse level is scored with
+# shift-bucketed matmuls (similarity_multiscale_matmul), as in the JAX package.
 _MATMUL_MACS = 2e10
 
 
@@ -61,24 +63,32 @@ def _offset(t: int) -> int:
     return t // 2 + (t % 2 - 1)
 
 
-def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...]) -> torch.Tensor:
-    """Dense scoring at the coarsest level (cpp:1820-1852).
+def coarse_macs(maps_shape, kernels_shape, t: int) -> int:
+    """Multiply-adds of the dense coarse conv: templates x stride-t
+    placements x channels x kernel cells."""
+    n_k, c_k, kh, kw = kernels_shape
+    return n_k * -(-maps_shape[-2] // t) * -(-maps_shape[-1] // t) * c_k * kh * kw
 
-    Returns ([B,] N, hb, wb) float32 normalized scores.  Raises
-    NotImplementedError where the JAX package switches to its matmul
-    scorer (above 2e10 MACs): that scorer belongs to the multi-scale port.
+
+def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...], feats=None, valids=None):
+    """Scoring at the coarsest level (cpp:1820-1852), adapted to the bank's
+    size as in the JAX package: the dense conv (``similarity_dense``) up to
+    ``_MATMUL_MACS`` multiply-adds, and above it, when the feature lists are
+    given, the shift-bucketed matmuls of ``similarity_multiscale_matmul``
+    at scale 1 (the same integers).
+
+    Returns ([B,] N, hb, wb) float32 normalized scores; -1 marks templates
+    without a feature inside the kernel (matmul branch).
     """
     coarse = len(t_at_level) - 1
     t_c = t_at_level[coarse]
-    n_k, c_k, kh_c, kw_c = kernels[coarse].shape
-    hb = -(-response_pyramid[coarse].shape[-2] // t_c)
-    wb = -(-response_pyramid[coarse].shape[-1] // t_c)
-    if n_k * hb * wb * c_k * kh_c * kw_c > _MATMUL_MACS:
-        raise NotImplementedError(
-            "coarse scoring above 2e10 MACs uses similarity_multiscale_matmul, "
-            "not ported yet (ROADMAP.md, Slice C: multi-scale)"
-        )
-    raw = similarity_dense(response_pyramid[coarse], kernels[coarse], t_c)
+    maps, kern = response_pyramid[coarse], kernels[coarse]
+    if feats is not None and coarse_macs(maps.shape, kern.shape, t_c) > _MATMUL_MACS:
+        one = torch.ones((1,), dtype=torch.float32, device=maps.device)
+        raw, nf = similarity_multiscale_matmul(maps, feats[coarse], valids[coarse], one, t_c, *kern.shape[-2:])
+        scores = score_normalize(raw, nf.clamp(min=1).expand(raw.shape[:-2]))
+        return torch.where(nf[:, None, None] > 0, scores, -1.0)
+    raw = similarity_dense(maps, kern, t_c)
     return score_normalize(raw, nfeats[coarse].expand(raw.shape[:-2]))
 
 
@@ -197,7 +207,7 @@ def detect_frame_core(
         depth = depth[None] if depth is not None else None
     pyramid = _build_response_pyramid(rgb, depth, cfg)
     t_c = cfg.t_at_level[-1]
-    scores = coarse_scores(pyramid, bank.kernels, bank.nfeats, tuple(cfg.t_at_level))
+    scores = coarse_scores(pyramid, bank.kernels, bank.nfeats, tuple(cfg.t_at_level), bank.feats, bank.valids)
     tid, yi, xi, score = topk_candidates(scores, threshold, cfg.top_k)
     x = xi * t_c + _offset(t_c)
     y = yi * t_c + _offset(t_c)
@@ -221,6 +231,17 @@ def detect_frame_core(
 # The JAX package's jit-compiled single-dispatch entry; eager PyTorch has
 # nothing to compile, so it is the same function.
 detect_frame = detect_frame_core
+
+
+def frame_response_pyramid(rgb, depth, cfg: DetectorConfig, device) -> List[torch.Tensor]:
+    """Per-level (C, H_l, W_l) uint8 response maps of one frame (arrays or
+    tensors, either may be None when its modality is off) on ``device``."""
+    pyr = _build_response_pyramid(
+        _image(rgb, torch.uint8, device)[None] if rgb is not None else None,
+        _image(depth, torch.int32, device)[None] if depth is not None else None,
+        cfg,
+    )
+    return [p[0] for p in pyr]
 
 
 def _image(a, dtype: torch.dtype, device: torch.device) -> Optional[torch.Tensor]:
@@ -279,12 +300,7 @@ class Detector:
 
     def build_response_pyramid(self, rgb, depth) -> List[torch.Tensor]:
         """Per-level (C, H_l, W_l) uint8 response maps of one frame."""
-        pyr = _build_response_pyramid(
-            _image(rgb, torch.uint8, self.device)[None] if rgb is not None else None,
-            _image(depth, torch.int32, self.device)[None] if depth is not None else None,
-            self.cfg,
-        )
-        return [p[0] for p in pyr]
+        return frame_response_pyramid(rgb, depth, self.cfg, self.device)
 
     def match_arrays(self, rgb, depth, threshold: float, class_id: str, apply_nms: bool = True):
         """Detection of one class in one frame; returns device tensors

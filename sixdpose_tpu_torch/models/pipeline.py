@@ -1,34 +1,47 @@
-"""Fused detect -> refine -> verify for one class, with no host trips.
+"""Fused detect -> refine -> verify, for one class or for every class, with
+no host trips.
 
-Port of the single-class part of the JAX package's ``models/pipeline.py``.
-The reference's serving loop (linemod_ros/detect.py:94-150,
-linemod_and_levelup_test.py:324-376) does host work between the match and
-every per-candidate poseRefine.  Here everything the refine stage needs is
-computed per template at train time (the ``icp_points`` cloud in the
-template info) and uploaded once per class, so a frame is
+Port of the JAX package's ``models/pipeline.py``.  The reference's serving
+loop (linemod_ros/detect.py:94-150, linemod_and_levelup_test.py:324-376)
+does host work between the match and every per-candidate poseRefine.  Here
+everything the refine stage needs is computed per template at train time
+(the ``icp_points`` cloud in the template info) and uploaded once, so a
+frame is
 
-    quantize -> spread -> response -> dense similarity -> top-K
-    -> pyramid refine -> NMS -> candidate selection -> window-median
-    seeding (+ in-plane seed fan) -> scene maps -> batched ICP
+    quantize -> spread -> response -> coarse similarity -> top-K
+    -> pyramid refine -> hypothesis selection -> window-median seeding
+    (+ in-plane seed fan) -> scene maps -> batched ICP
     -> pose composition -> verification
 
 on the device of the frame, with one readback of fixed-size results by the
 caller.  Nothing between the image upload and that readback waits for the
-device.  The multi-class core comes with the multi-class matcher.
+device.  ``detect_refine_core`` / ``FusedPipeline`` run one class;
+``detect_refine_multiclass_core`` / ``FusedMultiClassPipeline`` run every
+class of a bank in one pass (the multi-class match of
+``models/multiclass.py``, then one batched ICP over every class's
+hypotheses).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
-from sixdpose_tpu_torch.convert import DeviceBank, RefineBank, bank_levels_from_numpy, refine_bank_from_numpy
+from sixdpose_tpu_torch.convert import (
+    DeviceBank,
+    RefineBank,
+    bank_levels_from_numpy,
+    multiclass_refine_bank_from_numpy,
+    multiclass_verify_points,
+    refine_bank_from_numpy,
+)
 from sixdpose_tpu_torch.device import resolve_device
-from sixdpose_tpu_torch.models.detector import Detector, _image, detect_frame_core
+from sixdpose_tpu_torch.models.detector import Detector, _build_response_pyramid, _image, detect_frame_core
+from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher, match_multiclass_core
 from sixdpose_tpu_torch.models.refine import (
     _matmul,
     _matvec,
@@ -38,18 +51,15 @@ from sixdpose_tpu_torch.models.refine import (
     icp_batch,
     scene_chroma,
     scene_normals,
-    verify_poses,
+    verify_poses_multi,
 )
 
 
-def build_refine_bank(
-    detector: Detector, class_id: str, num_points: int = 512, device=None
-) -> Optional[RefineBank]:
-    """Stack the train-time ``icp_points`` clouds of a class into device
-    tensors on ``device`` (CUDA by default, raising when there is none;
-    ``device="cpu"`` for the CPU).  Returns None when any template lacks
+def refine_bank_fields(detector: Detector, class_id: str, num_points: int = 512):
+    """The six ``RefineBank`` arrays of a class as numpy, from the
+    train-time ``icp_points`` clouds of its templates, and the median
+    window: ``(fields, (win_h, win_w))``.  None when any template lacks
     them (banks imported from the reference store features only)."""
-    device = resolve_device(device)
     infos = detector.bank.infos.get(class_id, [])
     n = detector.bank.num_templates(class_id)
     if n == 0 or len(infos) < n:
@@ -88,8 +98,19 @@ def build_refine_bank(
         base_T[i, 2, 3] /= 1000.0  # reference quirk: z mm -> m (cpp:37)
     win_w = int(min(-(-(bbox_wh[:, 0].max() + 1) // 16) * 16, 192))
     win_h = int(min(-(-(bbox_wh[:, 1].max() + 1) // 16) * 16, 192))
-    fields = (clouds, valids, chroma if has_color else None, src_c, bbox_wh, base_T)
-    return refine_bank_from_numpy(fields, (win_h, win_w), device)
+    return (clouds, valids, chroma if has_color else None, src_c, bbox_wh, base_T), (win_h, win_w)
+
+
+def build_refine_bank(
+    detector: Detector, class_id: str, num_points: int = 512, device=None
+) -> Optional[RefineBank]:
+    """Stack the train-time ``icp_points`` clouds of a class into device
+    tensors on ``device`` (CUDA by default, raising when there is none;
+    ``device="cpu"`` for the CPU).  Returns None when any template lacks
+    them (``refine_bank_fields``)."""
+    device = resolve_device(device)
+    fields = refine_bank_fields(detector, class_id, num_points)
+    return refine_bank_from_numpy(*fields, device) if fields is not None else None
 
 
 def _masked_median(vals: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -188,6 +209,138 @@ def _repeat(a: torch.Tensor, s: int) -> torch.Tensor:
     return a[:, None].expand(a.shape[0], s, *a.shape[1:]).reshape(a.shape[0] * s, *a.shape[1:])
 
 
+def _select_hypotheses(tid, x, y, score, wh, max_refine: int):
+    """The ``max_refine`` hypotheses of each row of candidates (the last
+    axis; leading axes are classes): the top ones by raw score, deduped on
+    (template, location), not the box-NMS survivors.
+
+    Box NMS keeps one template per location, but a near-symmetric object
+    scores several views at one peak within a few points, and only
+    verification tells them apart, so rival views stay.  A candidate is a
+    duplicate of an earlier one of the same template within half its box
+    (``wh`` (..., K, 2), the candidate's box extent).  Tiered budget: every
+    template's first occurrence outranks any repeat, so same-view peaks far
+    apart (second instances) fill only what distinct views leave.
+
+    Returns (order (..., R) indices into the candidates, active (..., R)).
+    """
+    rank = torch.where(score >= 0, score, -torch.inf)
+    order0 = torch.argsort(-rank, dim=-1, stable=True)
+    tid_s, rank_s, x_s, y_s = (torch.gather(a, -1, order0) for a in (tid, rank, x, y))
+    wh_s = torch.gather(wh, -2, order0[..., None].expand(*order0.shape, 2))
+    same = tid_s[..., :, None] == tid_s[..., None, :]
+    near = ((x_s[..., :, None] - x_s[..., None, :]).abs() * 2 <= wh_s[..., None, :, 0]) & (
+        (y_s[..., :, None] - y_s[..., None, :]).abs() * 2 <= wh_s[..., None, :, 1]
+    )
+    idx = torch.arange(tid.shape[-1], device=tid.device)
+    earlier = idx[None, :] < idx[:, None]
+    dup = (same & near & earlier).any(-1)
+    rep = (same & earlier).any(-1)
+    rank2 = torch.where(dup, -torch.inf, rank_s + torch.where(rep, 0.0, 1e4))
+    order1 = torch.argsort(-rank2, dim=-1, stable=True)[..., :max_refine]
+    order = torch.gather(order0, -1, order1)
+    active = torch.isfinite(torch.gather(rank2, -1, order1)) & (torch.gather(score, -1, order) >= 0)
+    return order, active
+
+
+def _refine_hypotheses(
+    rgb: Optional[torch.Tensor],
+    depth: torch.Tensor,
+    rb: RefineBank,
+    icp: IcpConfig,
+    K: torch.Tensor,
+    gid: torch.Tensor,
+    x: torch.Tensor,
+    y: torch.Tensor,
+    active: torch.Tensor,
+    verify_pts: Optional[torch.Tensor],
+    verify_valid: Optional[torch.Tensor],
+    verify_colors: Optional[torch.Tensor],
+    verify_of: Optional[torch.Tensor],
+    verify_tau: float,
+    verify_color_weight: float,
+    icp_seeds: int,
+    seed_step_deg: float,
+    seed_flip: bool,
+    verify_color_zscore: bool,
+):
+    """Seeding, the seed fan, batched ICP, pose composition and
+    verification of M hypotheses of one frame.
+
+    ``gid``, ``x``, ``y``, ``active`` (M,): refine-bank template ids,
+    level-0 positions and liveness.  Hypothesis m verifies against point
+    set ``verify_of[m]`` of ``verify_pts`` (V, P, 3) mm, ``verify_valid``
+    (V, P) and ``verify_colors`` (V, P, 3) or None; without points the
+    verify score is -1.  Each hypothesis refines from ``icp_seeds``
+    in-plane seeds and keeps its best-verified one (fitness breaks ties and
+    ranks without verify).
+
+    Returns (R (M, 3, 3), t_mm (M, 3), fitness (M,), verify (M,)); inactive
+    hypotheses have fitness = verify = -1.
+    """
+    m_n = gid.shape[0]
+    # Candidate seeding: window-median depth -> centroid shift, then the
+    # in-plane seed fan (M -> M * S candidates).
+    init_T = _seed_candidates(depth, x, y, rb.bbox_wh[gid], rb.src_c[gid], K, rb.win)
+    s_n = icp_seeds
+    init_T = _inplane_seed_transforms(init_T, rb.src_c[gid], s_n, seed_step_deg, seed_flip)
+    gid_e = _repeat(gid, s_n)
+    act_e = _repeat(active, s_n)
+
+    # Batched ICP against the frame's scene maps.
+    sp = backproject(depth, K)
+    sn = scene_normals(sp)
+    use_color = rb.chroma is not None and rgb is not None and icp.color_weight > 0
+    chroma_maps = scene_chroma(rgb) if use_color else None
+    Ts, fits, _ = icp_batch(
+        rb.clouds[gid_e],
+        rb.valids[gid_e] & act_e[:, None],
+        sp,
+        sn,
+        K,
+        init_T,
+        icp.corr_dist,
+        icp.max_iters,
+        icp.coarse_gate_mult,
+        model_chroma=rb.chroma[gid_e] if use_color else None,
+        chroma_maps=chroma_maps,
+        color_weight=icp.color_weight,
+        chroma_scale=icp.chroma_scale,
+        point_weight=icp.point_weight,
+        lm_damping=icp.lm_damping,
+        bilinear_iters=icp.bilinear_iters,
+        coarse_points=icp.coarse_points,
+    )
+
+    # Compose with the template pose, then verify every candidate with its
+    # own point set.
+    result = _matmul(Ts, rb.base_T[gid_e])
+    R_out = result[:, :3, :3]
+    t_out = result[:, :3, 3] * 1000.0  # mm
+    if verify_pts is not None:
+        v = _repeat(verify_of, s_n)
+        vscore = verify_poses_multi(
+            verify_pts[v], verify_valid[v], R_out, t_out, depth, K,
+            tau_mm=verify_tau,
+            model_colors=verify_colors[v] if verify_colors is not None else None,
+            rgb=rgb if verify_colors is not None else None,
+            color_weight=verify_color_weight,
+            color_zscore=verify_color_zscore,
+        )
+    else:
+        vscore = torch.full((m_n * s_n,), -1.0, dtype=torch.float32, device=depth.device)
+    fits = torch.where(act_e, fits, -1.0)
+    vscore = torch.where(act_e, vscore, -1.0)
+
+    if s_n > 1:
+        # Each hypothesis's best seed: verify-ranked, fitness as tiebreaker
+        # (and as the rank when verify is off).
+        seed_rank = torch.where(vscore >= 0, vscore * 100.0 + fits.clamp(min=0.0), fits).reshape(m_n, s_n)
+        pick = torch.arange(m_n, device=depth.device) * s_n + torch.argmax(seed_rank, dim=1)
+        R_out, t_out, fits, vscore = R_out[pick], t_out[pick], fits[pick], vscore[pick]
+    return R_out, t_out, fits, vscore
+
+
 def detect_refine_core(
     rgb: Optional[torch.Tensor],
     depth: torch.Tensor,
@@ -213,8 +366,7 @@ def detect_refine_core(
       rgb: (H, W, 3) uint8 or None; depth: (H, W) int32 mm.
       bank: the class's ``DeviceBank``; rb: its ``RefineBank``; both on the
         images' device, as is ``K`` (3, 3) float32.
-      max_refine: candidates refined: the top ones by raw score, deduped on
-        (template, location), distinct views before same-template repeats.
+      max_refine: candidates refined (``_select_hypotheses``).
       verify_pts / verify_colors: (P, 3) model surface points (mm) and
         their colors for ``verify_poses``; without points the verify
         score is -1.
@@ -226,91 +378,78 @@ def detect_refine_core(
     t_mm (R, 3), fitness, verify, active); inactive slots have
     active=False and fitness = verify = -1.
     """
-    tid, x, y, score, _ = detect_frame_core(rgb, depth, bank, cfg, threshold, True)
-    # Top max_refine candidates by raw score, deduped on (template,
-    # location), not the box-NMS survivors: rival views at one peak must
-    # reach verification, while same-view peaks far apart are distinct
-    # instances and both stay.
-    rank = torch.where(score >= 0, score, -torch.inf)
-    order0 = torch.argsort(-rank, stable=True)
-    tid_s, rank_s, x_s, y_s = tid[order0], rank[order0], x[order0], y[order0]
-    wh_s = rb.bbox_wh[tid_s.long()]
-    k_n = tid_s.shape[0]
-    same = tid_s[:, None] == tid_s[None, :]
-    near = ((x_s[:, None] - x_s[None, :]).abs() * 2 <= wh_s[None, :, 0]) & (
-        (y_s[:, None] - y_s[None, :]).abs() * 2 <= wh_s[None, :, 1]
+    # The hypotheses are not the box-NMS survivors, so the match skips NMS.
+    tid, x, y, score, _ = detect_frame_core(rgb, depth, bank, cfg, threshold, False)
+    order, active = _select_hypotheses(tid, x, y, score, rb.bbox_wh[tid.long()], max_refine)
+    tid_r, x_r, y_r, score_r = (a[order] for a in (tid, x, y, score))
+    vp = verify_pts[None] if verify_pts is not None else None
+    vv = torch.ones(vp.shape[:2], dtype=torch.bool, device=depth.device) if vp is not None else None
+    vc = verify_colors[None] if verify_colors is not None else None
+    R_out, t_out, fits, vscore = _refine_hypotheses(
+        rgb, depth, rb, icp, K, tid_r.long(), x_r, y_r, active, vp, vv, vc,
+        torch.zeros_like(order), verify_tau, verify_color_weight, icp_seeds, seed_step_deg, seed_flip,
+        verify_color_zscore,
     )
-    idx = torch.arange(k_n, device=tid.device)
-    earlier = idx[None, :] < idx[:, None]
-    dup = (same & near & earlier).any(1)
-    # Tiered budget: distinct views first, same-template repeats after.
-    rep = (same & earlier).any(1)
-    rank2 = torch.where(dup, -torch.inf, rank_s + torch.where(rep, 0.0, 1e4))
-    order1 = torch.argsort(-rank2, stable=True)[:max_refine]
-    order = order0[order1]
-    tid_r, x_r, y_r, score_r = tid[order], x[order], y[order], score[order]
-    active = torch.isfinite(rank2[order1]) & (score_r >= 0)
-    n_r = tid_r.shape[0]
-    tid_rl = tid_r.long()
-
-    # Candidate seeding: window-median depth -> centroid shift, then the
-    # in-plane seed fan (R -> R * S candidates).
-    init_T = _seed_candidates(depth, x_r, y_r, rb.bbox_wh[tid_rl], rb.src_c[tid_rl], K, rb.win)
-    s_n = icp_seeds
-    init_T = _inplane_seed_transforms(init_T, rb.src_c[tid_rl], s_n, seed_step_deg, seed_flip)
-    tid_e = _repeat(tid_rl, s_n)
-    act_e = _repeat(active, s_n)
-
-    # Batched ICP against the frame's scene maps.
-    sp = backproject(depth, K)
-    sn = scene_normals(sp)
-    use_color = rb.chroma is not None and rgb is not None and icp.color_weight > 0
-    chroma_maps = scene_chroma(rgb) if use_color else None
-    Ts, fits, _ = icp_batch(
-        rb.clouds[tid_e],
-        rb.valids[tid_e] & act_e[:, None],
-        sp,
-        sn,
-        K,
-        init_T,
-        icp.corr_dist,
-        icp.max_iters,
-        icp.coarse_gate_mult,
-        model_chroma=rb.chroma[tid_e] if use_color else None,
-        chroma_maps=chroma_maps,
-        color_weight=icp.color_weight,
-        chroma_scale=icp.chroma_scale,
-        point_weight=icp.point_weight,
-        lm_damping=icp.lm_damping,
-        bilinear_iters=icp.bilinear_iters,
-        coarse_points=icp.coarse_points,
-    )
-
-    # Compose with the template pose, then verify.
-    result = _matmul(Ts, rb.base_T[tid_e])
-    R_out = result[:, :3, :3]
-    t_out = result[:, :3, 3] * 1000.0  # mm
-    if verify_pts is not None:
-        vscore = verify_poses(
-            verify_pts, R_out, t_out, depth, K,
-            tau_mm=verify_tau,
-            model_colors=verify_colors,
-            rgb=rgb if verify_colors is not None else None,
-            color_weight=verify_color_weight,
-            color_zscore=verify_color_zscore,
-        )
-    else:
-        vscore = torch.full((n_r * s_n,), -1.0, dtype=torch.float32, device=depth.device)
-    fits = torch.where(act_e, fits, -1.0)
-    vscore = torch.where(act_e, vscore, -1.0)
-
-    if s_n > 1:
-        # Each candidate's best seed: verify-ranked, fitness as tiebreaker
-        # (and as the rank when verify is off).
-        seed_rank = torch.where(vscore >= 0, vscore * 100.0 + fits.clamp(min=0.0), fits).reshape(n_r, s_n)
-        pick = torch.arange(n_r, device=depth.device) * s_n + torch.argmax(seed_rank, dim=1)
-        R_out, t_out, fits, vscore = R_out[pick], t_out[pick], fits[pick], vscore[pick]
     return tid_r, x_r, y_r, score_r, R_out, t_out, fits, vscore, active
+
+
+def detect_refine_multiclass_core(
+    rgb: Optional[torch.Tensor],
+    depth: torch.Tensor,
+    bank: DeviceBank,
+    pad_map: torch.Tensor,
+    cfg: DetectorConfig,
+    threshold: float,
+    rb: RefineBank,
+    icp: IcpConfig,
+    K: torch.Tensor,
+    max_refine: int,
+    verify_pts: torch.Tensor,
+    verify_valid: torch.Tensor,
+    verify_colors: Optional[torch.Tensor],
+    verify_tau: float = 15.0,
+    verify_color_weight: float = 0.5,
+    icp_seeds: int = 1,
+    seed_step_deg: float = 18.0,
+    seed_flip: bool = False,
+    verify_color_zscore: bool = False,
+):
+    """One frame of every class: the multi-class match, then the top
+    ``max_refine`` hypotheses of each class (``_select_hypotheses``) refine
+    together in one batched ICP of C * R * S candidates and verify together,
+    each against its own class's points, and each keeps its best seed.
+
+    Args:
+      bank, pad_map: the superbank of ``convert.multiclass_bank_from_numpy``.
+      rb: the global refine bank (``convert.multiclass_refine_bank_from_numpy``,
+        the superbank's template order).
+      verify_pts (C, P, 3) mm, verify_valid (C, P), verify_colors (C, P, 3)
+        or None: each class's padded verification points
+        (``convert.multiclass_verify_points``).
+      The rest as ``detect_refine_core``.
+
+    Returns (C, R) tensors (tid_local, x, y, score, R (C, R, 3, 3), t_mm
+    (C, R, 3), fitness, verify, active), rows in class order.
+    """
+    pyramid = _build_response_pyramid(
+        rgb[None] if rgb is not None else None, depth[None], cfg
+    )
+    # The hypotheses are not the box-NMS survivors, so the match skips NMS.
+    tid_l, x, y, score, _ = match_multiclass_core(
+        [p[0] for p in pyramid], bank, pad_map, tuple(cfg.t_at_level), threshold, cfg.top_k, cfg.nms_iou, False
+    )
+    gid_all = torch.gather(pad_map.clamp(min=0).long(), 1, tid_l.long())
+    order, active = _select_hypotheses(tid_l, x, y, score, bank.whs[0][gid_all], max_refine)
+    tid_r, gid, x_r, y_r, score_r = (torch.gather(a, 1, order) for a in (tid_l, gid_all, x, y, score))
+    c_n, r_n = gid.shape
+    cls = torch.arange(c_n, device=depth.device).repeat_interleave(r_n)
+    R_out, t_out, fits, vscore = _refine_hypotheses(
+        rgb, depth, rb, icp, K, gid.reshape(-1), x_r.reshape(-1), y_r.reshape(-1), active.reshape(-1),
+        verify_pts, verify_valid, verify_colors, cls, verify_tau, verify_color_weight, icp_seeds,
+        seed_step_deg, seed_flip, verify_color_zscore,
+    )
+    unflat = lambda a: a.reshape(c_n, r_n, *a.shape[1:])  # noqa: E731
+    return tid_r, x_r, y_r, score_r, unflat(R_out), unflat(t_out), unflat(fits), unflat(vscore), active
 
 
 class FusedPipeline:
@@ -382,6 +521,99 @@ class FusedPipeline:
             self.K,
             self.max_refine,
             self.verify_pts,
+            self.verify_colors,
+            self.verify_tau,
+            self.verify_color_weight,
+            self.icp_seeds,
+            self.seed_step_deg,
+            self.seed_flip,
+            self.verify_color_zscore,
+        )
+
+
+class FusedMultiClassPipeline:
+    """detect + refine + verify for every class of a bank as one callable.
+
+    ``max_refine`` hypotheses are kept per class through ICP and
+    verification, so the caller ranks poses by verification rather than by
+    match similarity (under clutter a wrong-surface lock can beat the right
+    pose on similarity and lose on verification).
+
+    Runs on ``device``: CUDA by default, raising when there is none; pass
+    ``device="cpu"`` for the CPU.  Every class's templates must carry the
+    train-time refine infos (as for ``FusedPipeline``); ``verify_pts`` maps
+    each class id to its (P, 3) model surface points in mm, and
+    ``verify_colors`` optionally to their colours.  The superbank, the
+    global refine bank and the padded verification points are uploaded
+    once, here.
+    """
+
+    def __init__(
+        self,
+        detector: Detector,
+        K: np.ndarray,
+        class_ids=None,
+        icp: Optional[IcpConfig] = None,
+        max_refine: int = 4,
+        num_points: int = 512,
+        verify_pts: Optional[Dict[str, np.ndarray]] = None,
+        verify_colors: Optional[Dict[str, np.ndarray]] = None,
+        verify_tau: float = 15.0,
+        verify_color_weight: float = 0.5,
+        icp_seeds: int = 1,
+        seed_step_deg: float = 18.0,
+        seed_flip: bool = False,
+        verify_color_zscore: bool = False,
+        device=None,
+    ):
+        self.device = resolve_device(device)
+        self.det = detector
+        self.class_ids = list(class_ids or detector.class_ids())
+        self.icp = icp or IcpConfig()
+        self.max_refine = max_refine
+        self.icp_seeds = int(icp_seeds)
+        self.seed_step_deg = float(seed_step_deg)
+        self.seed_flip = bool(seed_flip)
+        self.K = torch.from_numpy(np.asarray(K, np.float32)).to(self.device)
+        self.mc = MultiClassMatcher(detector, self.class_ids, self.device)
+        per_class = []
+        for cid in self.class_ids:
+            fields = refine_bank_fields(detector, cid, num_points)
+            if fields is None:
+                raise ValueError(
+                    f"class {cid!r} lacks icp_points/pose infos; train with "
+                    "render_train_templates or use the unfused serving path"
+                )
+            per_class.append(fields)
+        self.rb = multiclass_refine_bank_from_numpy(per_class, self.device)
+        if verify_pts is None:
+            raise ValueError("verify_pts (class_id -> (P, 3) array) required")
+        self.verify_pts, self.verify_valid, self.verify_colors = multiclass_verify_points(
+            [np.asarray(verify_pts[c], np.float32) for c in self.class_ids],
+            [verify_colors.get(c) for c in self.class_ids] if verify_colors is not None else None,
+            self.device,
+        )
+        self.verify_tau = float(verify_tau)
+        self.verify_color_weight = float(verify_color_weight)
+        self.verify_color_zscore = bool(verify_color_zscore)
+
+    def __call__(self, rgb, depth, threshold: float):
+        """Returns (C, R) device tensors (tid_local, x, y, score, R, t_mm,
+        fitness, verify, active), rows in ``class_ids`` order; nothing waits
+        for the device after the images are uploaded."""
+        return detect_refine_multiclass_core(
+            _image(rgb, torch.uint8, self.device),
+            _image(depth, torch.int32, self.device),
+            self.mc.bank,
+            self.mc.pad_map,
+            self.det.cfg,
+            float(threshold),
+            self.rb,
+            self.icp,
+            self.K,
+            self.max_refine,
+            self.verify_pts,
+            self.verify_valid,
             self.verify_colors,
             self.verify_tau,
             self.verify_color_weight,

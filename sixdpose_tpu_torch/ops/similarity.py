@@ -1,4 +1,4 @@
-"""Template similarity over response maps: the single-class part.
+"""Template similarity over response maps.
 
 PyTorch port of the main-path functions of the JAX package's
 ``ops/similarity.py``.  The reference accumulates the response under each
@@ -7,6 +7,9 @@ here that sum is
 
 - ``similarity_dense``: one float32 convolution of the space-to-depth
   response maps with one-hot template kernels, for the coarse level;
+- ``similarity_multiscale_matmul``: the same coarse sum, for banks too
+  large for the conv, as one matmul per shift bucket of the feature lists
+  (optionally at several feature scales);
 - ``similarity_local_sparse``: a per-candidate gather-sum over a 16x16
   window of placements, for the pyramid refinement.  On a CUDA tensor it
   runs the hand-written kernel of ``ops/local_refine.py``; this module holds
@@ -125,6 +128,145 @@ def similarity_dense(response_maps: torch.Tensor, kernels: torch.Tensor, t: int)
     rhs = _s2d_kernels(kernels, t).to(torch.float32)
     out = torch.round(F.conv2d(lhs, rhs))
     return out[0] if single else out
+
+
+# Bytes of one row chunk of the float32 shift-bucketed weights W.  An 80 GB
+# H100 holds the 9 x 810-template bank's whole W (0.48 GB) and a 15 x
+# 337-template VGA bank's (0.33 GB) in one chunk beside the bank and a fused
+# frame's ICP buffers; larger sweeps (many scales) build and contract W a
+# chunk at a time, so its peak stays at 1 GiB.
+_W_CHUNK_BYTES = 1 << 30
+
+
+def _bucket_slices(maps_s2d: torch.Tensor, khb: int, kwb: int) -> torch.Tensor:
+    """The s2d maps (B, ct2, hb, wb) under each shift bucket b = dy * kwb + dx:
+    (khb * kwb, ct2, B * ho * wo) float32, bucket b holding the window at
+    (dy, dx) of every frame (column = frame * ho * wo + y * wo + x)."""
+    b_n, ct2, hb, wb = maps_s2d.shape
+    ho, wo = hb - khb + 1, wb - kwb + 1
+    m = maps_s2d.to(torch.float32).transpose(0, 1)  # (ct2, B, hb, wb)
+    return torch.stack(
+        [m[:, :, dy : dy + ho, dx : dx + wo].reshape(ct2, b_n * ho * wo) for dy in range(khb) for dx in range(kwb)]
+    )
+
+
+def _bucket_weights(bucket: torch.Tensor, cprime: torch.Tensor, ok: torch.Tensor, bh: int, ct2: int) -> torch.Tensor:
+    """The shift-bucketed weights of a row chunk: (rows, F) bucket ids,
+    s2d channels and masks -> W (bh, rows, ct2) float32 with W[b, r, c] the
+    number of valid features f of row r at (bucket, cprime) = (b, c).
+
+    One scatter-add of the masks (masked features add 0 at a clamped
+    index).  The JAX package builds W as a batched one-hot matmul because
+    scatters are serial on the TPU; on the card a scatter-add is one
+    parallel pass, and its float sums of 0/1 are exact in any order."""
+    rows = bucket.shape[0]
+    row = torch.arange(rows, device=bucket.device)[:, None]
+    idx = (bucket.clamp(0, bh - 1).to(torch.int64) * rows + row) * ct2 + cprime.clamp(0, ct2 - 1).to(torch.int64)
+    w = torch.zeros(bh * rows * ct2, dtype=torch.float32, device=bucket.device)
+    w.scatter_add_(0, idx.reshape(-1), ok.to(torch.float32).reshape(-1))
+    return w.reshape(bh, rows, ct2)
+
+
+def _matmul_shift_sum_s2d(slices: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """sum_b W[b] @ slices[b]: weights (bh, SN, ct2) and bucket slices (bh,
+    ct2, P) -> (SN, P) float32, one matmul per shift bucket."""
+    acc = torch.matmul(w[0].to(torch.float32), slices[0])
+    for b in range(1, w.shape[0]):
+        acc = torch.addmm(acc, w[b].to(torch.float32), slices[b])
+    return acc
+
+
+def matmul_shift_sum(response_maps: torch.Tensor, w: torch.Tensor, t: int, khb: int, kwb: int) -> torch.Tensor:
+    """raw[sn, y, x] = sum_b W[b, sn] @ maps_s2d[:, y + b // kwb, x + b % kwb]:
+    the shift-bucketed contraction of (C, H, W) uint8 maps with weights
+    (khb * kwb, SN, C * t * t) (any integer or float dtype) -> (SN, Ho, Wo)
+    float32."""
+    maps = _s2d_maps(response_maps, t)[None]
+    hb, wb = maps.shape[-2:]
+    raw = _matmul_shift_sum_s2d(_bucket_slices(maps, khb, kwb), w)
+    return raw.reshape(w.shape[1], hb - khb + 1, wb - kwb + 1)
+
+
+def bucket_table(feats: torch.Tensor, valid: torch.Tensor, scales: torch.Tensor, t: int, kh: int, kw: int):
+    """Where each feature of each template falls at each scale in the
+    shift-bucketed layout: (bucket, cprime, ok), each (S * N, F), row
+    s * N + n for template n at scale s.
+
+    Feature (x, y, c) at scale s sits at (round(x * s), round(y * s)) (one
+    float32 multiply, rounded half to even); it counts (``ok``) only if
+    valid, inside the (kh, kw) extent and s > 0, and falls in shift bucket
+    (y // t) * ceil(kw / t) + x // t at s2d channel c * t * t + (y % t) * t
+    + x % t."""
+    n, f = feats.shape[:2]
+    kwb = -(-kw // t)
+    sc = scales.to(torch.float32)[:, None, None]
+    xs = torch.round(feats[..., 0].to(torch.float32) * sc).to(torch.int32)  # (S, N, F)
+    ys = torch.round(feats[..., 1].to(torch.float32) * sc).to(torch.int32)
+    ok = valid & (xs >= 0) & (xs < kw) & (ys >= 0) & (ys < kh) & (sc > 0)
+    cprime = feats[..., 2] * (t * t) + (ys % t) * t + xs % t
+    bucket = (ys // t) * kwb + xs // t
+    return (a.reshape(scales.shape[0] * n, f) for a in (bucket, cprime, ok))
+
+
+def similarity_multiscale_matmul(
+    response_maps: torch.Tensor,
+    feats: torch.Tensor,
+    valid: torch.Tensor,
+    scales: torch.Tensor,
+    t: int,
+    kh: int,
+    kw: int,
+):
+    """Coarse scoring of every template at every scale as shift-bucketed
+    matmuls (the JAX package's ``similarity_multiscale_matmul``).
+
+    Feature f of template n at scale s sits at (round(x * s), round(y * s))
+    and counts only if valid, inside the (kh, kw) extent and s > 0; in the
+    space-to-depth layout it falls in one shift bucket b at one channel
+    (``bucket_table``), so with W[b, sn, c'] the number of row sn's
+    features there,
+
+        raw[sn] = sum_b W[b, sn] @ maps_s2d[:, dy_b : dy_b + Ho, dx_b : dx_b + Wo]
+
+    W is built a row chunk at a time by one scatter-add
+    (``_bucket_weights``, chunks of ``_W_CHUNK_BYTES``) and contracted by
+    one matmul per bucket.
+
+    Exact in float32: the operands are integers (responses 0..4, counts of
+    coinciding features), which float32 and TF32 hold exactly, every
+    product and partial sum is an integer no larger than 4 * F, far below
+    2^24, so any summation order cuBLAS or the CPU picks gives the exact
+    integer.  (bfloat16 or float16 outputs would not: they hold integers
+    exactly only up to 256 or 2048.)
+
+    Args:
+      response_maps: (C, H, W) or (B, C, H, W) uint8.
+      feats: (N, F, 3) int32 (x, y, channel); valid: (N, F) bool.
+      scales: (S,) float32 feature-coordinate scales, 0 = no proposal.
+      t: stride of this level; kh, kw: the kernel extent.
+
+    Returns (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,) int32), row
+    s * N + n for template n at scale s; Ho = ceil(H / t) - ceil(kh / t) + 1.
+    """
+    single = response_maps.dim() == 3
+    maps = _s2d_maps(response_maps[None] if single else response_maps, t)
+    khb, kwb = -(-kh // t), -(-kw // t)
+    bh, ct2 = khb * kwb, maps.shape[1]
+    bucket, cprime, ok = bucket_table(feats, valid, scales, t, kh, kw)
+    sn = bucket.shape[0]
+    nfeat = ok.sum(-1).to(torch.int32)
+
+    hb, wb = maps.shape[-2:]
+    ho, wo = hb - khb + 1, wb - kwb + 1
+    slices = _bucket_slices(maps, khb, kwb)
+    chunk = max(1, min(sn, _W_CHUNK_BYTES // (bh * ct2 * 4)))
+    parts = [
+        _matmul_shift_sum_s2d(slices, _bucket_weights(bucket[i : i + chunk], cprime[i : i + chunk], ok[i : i + chunk], bh, ct2))
+        for i in range(0, sn, chunk)
+    ]
+    raw = torch.cat(parts) if len(parts) > 1 else parts[0]
+    raw = raw.reshape(sn, maps.shape[0], ho, wo).transpose(0, 1).contiguous()
+    return (raw[0] if single else raw), nfeat
 
 
 def _local_conv_operands(response_maps, kernels_sel, origins, t: int, window: int):

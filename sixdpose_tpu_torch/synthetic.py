@@ -6,19 +6,25 @@
   the same seed in the same order, so both packages see identical data.
 - ``bench_refine_bank``: the refine stage bench.py adds to that workload
   for its detect+refine measurement (bench.py:229-270).
-- ``training_view`` / ``planted_scene``: a VGA scene with a textured
-  object on a depth dome pasted at a known place, and the views that
-  train its templates.  ``tools/torch_port_golden.py`` records what the
-  JAX package detects and refines in it.
+- ``training_view`` / ``planted_scene`` / ``planted_scene_multi``: a VGA
+  scene with textured objects on depth domes pasted at known places, and
+  the views that train their templates.  ``tools/torch_port_golden.py``
+  and ``tools/torch_port_mc_golden.py`` record what the JAX package
+  detects and refines in them.
+- ``multiclass_workload``: the shape of the JAX package's synthetic
+  benchmark (``SYNTH_r05.json``, ``benchmark.py:run_benchmark``): 9 classes
+  of 810 views in one bank, a 320x240 RGB-D frame and its settings.  The
+  bank is drawn, not rendered (rendering is not ported yet).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 
-from sixdpose_tpu_torch.config import IcpConfig
+from sixdpose_tpu_torch.config import ColorGradientConfig, DepthNormalConfig, DetectorConfig, IcpConfig
+from sixdpose_tpu_torch.models.detector import Detector
 from sixdpose_tpu_torch.models.templates import TemplateLevel
 
 VGA = (480, 640)
@@ -139,8 +145,116 @@ def training_view(shape_id: int, at: Tuple[int, int] = (264, 184)):
 def planted_scene(x: int, y: int, seed: int = 11):
     """(rgb, depth uint16) of a cluttered VGA scene with object 0 pasted at
     top-left (x, y): low-contrast noise on a noisy plane at 900 mm."""
+    return planted_scene_multi([(0, x, y)], seed)
+
+
+def planted_scene_multi(placements: Sequence[Tuple[int, int, int]], seed: int = 11):
+    """(rgb, depth uint16) of the cluttered VGA scene of ``planted_scene``
+    with object ``shape_id`` pasted at top-left (x, y) for each
+    ``(shape_id, x, y)`` of ``placements``, in order."""
     rng = np.random.default_rng(seed)
     rgb = rng.integers(30, 70, VGA + (3,), np.uint8)
     depth = (900 + rng.integers(-2, 3, VGA)).astype(np.uint16)
-    _paste(rgb, depth, 0, x, y, 850)
+    for shape_id, x, y in placements:
+        _paste(rgb, depth, shape_id, x, y, 850)
     return rgb, depth
+
+
+# The synthetic benchmark's camera and frame (benchmark.py:run_benchmark at
+# im_size (320, 240)), and its bank's shape: 9 meshes of 73-87 mm diagonal
+# at 450 mm under f = 280 span 45-54 px, and 80 views over the full sphere
+# with tilt_step 0.2 pi make 810 templates per class.
+SYNTH_K = np.array([[280.0, 0, 160.0], [0, 280.0, 120.0], [0, 0, 1]], np.float32)
+SYNTH_FRAME = (240, 320)
+SYNTH_CLASSES = 9
+SYNTH_VIEWS = 810
+SYNTH_CFG = DetectorConfig(
+    t_at_level=(4, 8),
+    top_k=128,
+    color=ColorGradientConfig(num_features=40, strong_threshold=30.0),
+    depth=DepthNormalConfig(num_features=24, extract_threshold=1, focal=280.0),
+)
+
+
+def multiclass_workload(classes: int = SYNTH_CLASSES, views: int = SYNTH_VIEWS, seed: int = 0) -> dict:
+    """A multi-class workload of the synthetic benchmark's shape and
+    settings (``SYNTH_r05.json``: top_k 128, 96 hypotheses per class, 4
+    seeds with the flip, 20 ICP iterations, verify_tau 6), drawn from
+    ``seed``.
+
+    Per class c: ``views`` templates whose level-0 (width, height) are
+    drawn in [12, 45 + c * 9 / 8] px (the class's largest view), with 40
+    colour features (channels 0-7) and 24 depth features (channels 8-15)
+    at level 0 and 20 + 12 at level 1, as ``DetectorConfig(color=40,
+    depth=24)`` extracts them; each template's info carries a box-surface
+    cloud of 512 points (the pattern of ``bench_refine_bank``, the box's
+    diagonal the class's 73 + 14 c / 8 mm) with colours, an identity pose
+    and its bbox.  Each class verifies against its first cloud (mm) and
+    512 random colours.  The frame is 320 x 240 RGB noise on a noisy plane
+    at 450 mm.
+
+    Returns a dict: ``class_ids``, ``templates`` and ``infos`` (per class,
+    per template), ``rgb`` (240, 320, 3) uint8, ``depth`` (240, 320)
+    uint16, ``K``, ``cfg``, ``threshold`` (55), ``icp``, ``max_refine``,
+    ``icp_seeds``, ``seed_flip``, ``num_points``, ``verify_tau``,
+    ``verify_color_weight``, ``verify_pts`` and ``verify_colors`` (class id
+    -> (512, 3)).
+    """
+    rng = np.random.default_rng(seed)
+    n_pts = 512
+    out = {"class_ids": [f"obj_{c:02d}" for c in range(classes)], "templates": [], "infos": [],
+           "verify_pts": {}, "verify_colors": {}}
+    for c, cid in enumerate(out["class_ids"]):
+        largest = int(round(45 + c * 9 / 8))
+        whs = rng.integers(12, largest + 1, (views, 2))
+        levels = []
+        for l, (n_color, n_depth) in enumerate(((40, 24), (20, 12))):
+            wl, hl = whs[:, 0] >> l, whs[:, 1] >> l
+            n_f = n_color + n_depth
+            xs = (rng.random((views, n_f)) * (wl[:, None] + 1)).astype(np.int64)
+            ys = (rng.random((views, n_f)) * (hl[:, None] + 1)).astype(np.int64)
+            ch = np.concatenate([rng.integers(0, 8, (views, n_color)), rng.integers(8, 16, (views, n_depth))], 1)
+            levels.append((np.stack([xs, ys, ch], -1), wl, hl))
+        out["templates"].append([
+            [TemplateLevel(features=f[i], width=int(wl[i]), height=int(hl[i]), pyramid_level=l)
+             for l, (f, wl, hl) in enumerate(levels)]
+            for i in range(views)
+        ])
+        half = (73 + 14 * c / 8) / 2 / np.sqrt(3) / 1000.0  # the box's half edge, m
+        face = rng.integers(0, 3, (views, n_pts))
+        sgn = rng.choice([-1.0, 1.0], (views, n_pts))
+        cl = rng.uniform(-half, half, (views, n_pts, 3)).astype(np.float32)
+        for ax in range(3):
+            cl[..., ax] = np.where(face == ax, half * sgn, cl[..., ax]).astype(np.float32)
+        colors = rng.integers(60, 220, (views, n_pts, 3)).astype(np.uint8)
+        out["infos"].append([
+            {"icp_points": cl[i], "icp_colors": colors[i], "cam_R_w2c": np.eye(3), "cam_t_w2c": np.zeros((3, 1)),
+             "render_bbox": np.array([0, 0, whs[i, 0], whs[i, 1]])}
+            for i in range(views)
+        ])
+        out["verify_pts"][cid] = (cl[0] * 1000.0).astype(np.float32)
+        out["verify_colors"][cid] = rng.integers(60, 220, (n_pts, 3)).astype(np.float32)
+    h, w = SYNTH_FRAME
+    out["rgb"] = rng.integers(0, 255, (h, w, 3), np.uint8)
+    out["depth"] = (450 + 30 * rng.standard_normal((h, w))).astype(np.uint16)
+    out.update(K=SYNTH_K.copy(), cfg=SYNTH_CFG, threshold=55.0, icp=IcpConfig(max_iters=20), max_refine=96,
+               icp_seeds=4, seed_flip=True, num_points=n_pts, verify_tau=6.0, verify_color_weight=0.5)
+    return out
+
+
+def multiclass_detector(workload: dict, device) -> Detector:
+    """A ``Detector`` on ``device`` holding every class of a
+    ``multiclass_workload`` with its refine infos."""
+    det = Detector(workload["cfg"], device=device)
+    for cid, templates, infos in zip(workload["class_ids"], workload["templates"], workload["infos"]):
+        for levels, info in zip(templates, infos):
+            det.bank.add_template_levels(cid, levels, info)
+    return det
+
+
+def multiclass_pipeline_args(workload: dict) -> dict:
+    """The keyword arguments of ``FusedMultiClassPipeline`` (after the
+    detector and the camera) for a ``multiclass_workload``."""
+    names = ("icp", "max_refine", "num_points", "verify_pts", "verify_colors", "verify_tau", "verify_color_weight",
+             "icp_seeds", "seed_flip")
+    return {n: workload[n] for n in names}

@@ -1,9 +1,11 @@
 """Tests of the port that need a CUDA card (marker ``cuda``).
 
 The local-refine kernel against its plain version on the card, the
-wrapper's input checks, the detector on the card against its CPU run, and
-the scene maps, batched ICP, verification and the fused detect+refine frame
-on the card against their CPU runs.
+wrapper's input checks, the detector on the card against its CPU run, the
+scene maps, batched ICP, verification and the fused detect+refine frame on
+the card against their CPU runs, and the multi-class path (the matmul
+coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``) on
+the card against its CPU run.
 They import neither JAX nor the JAX package, so a GPU machine without JAX
 runs them apart from the suite's conftest (which imports JAX):
 
@@ -279,3 +281,86 @@ def test_detect_refine_core_waits_for_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert bool(out[8].cpu().all())
+
+
+# -- every class of a bank (models/multiclass.py, the matmul coarse scorer) ---
+#
+# The matcher and the matmul scorer compare exactly; the fused multi-class
+# frame as the fused frame above.
+
+
+def test_matmul_scorer_on_card_equals_cpu_and_dense(cuda):
+    """Several scales, one of them 0; at scale 1 the conv of the kernels
+    built from the same features gives the same integers."""
+    from sixdpose_tpu_torch.ops import similarity as TS
+
+    rng = np.random.default_rng(7)
+    maps = rng.integers(0, 5, (16, 120, 160)).astype(np.uint8)
+    feats = np.stack([rng.integers(0, 30, (300, 32)), rng.integers(0, 30, (300, 32)), rng.integers(0, 16, (300, 32))], -1)
+    feats = feats.astype(np.int32)
+    valid = rng.random((300, 32)) < 0.9
+    scales = np.array([1.0, 0.0, 0.8, 1.2], np.float32)
+    out = {}
+    for device in (cuda, torch.device("cpu")):
+        args = [torch.from_numpy(a).to(device) for a in (maps, feats, valid, scales)]
+        out[device.type] = TS.similarity_multiscale_matmul(*args, 8, 28, 28)
+    assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0]) and torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
+    kern = torch.from_numpy(TS.build_template_kernels(feats, valid, 28, 28, 16)).to(cuda)
+    dense = TS.similarity_dense(torch.from_numpy(maps).to(cuda), kern, 8)
+    assert torch.equal(out["cuda"][0][:300], dense)
+    assert not out["cuda"][0][300:600].any() and not out["cuda"][1][300:600].any()
+
+
+def _multiclass(device, classes=3, views=40):
+    w = synthetic.multiclass_workload(classes=classes, views=views)
+    return w, synthetic.multiclass_detector(w, device)
+
+
+@pytest.mark.parametrize("matmul_branch", [False, True])
+def test_multiclass_matcher_on_card_equals_cpu(cuda, monkeypatch, matmul_branch):
+    """A cut synthetic multi-class workload (3 classes x 40 views, 320 x 240):
+    the card's result equals the port's CPU run everywhere, with the dense
+    and with the matmul coarse scorer; one refine kernel launch per frame
+    for every class."""
+    from sixdpose_tpu_torch.models import detector as TD
+    from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
+
+    if matmul_branch:
+        monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
+    w, det = _multiclass(cuda)
+    gpu, cpu = MultiClassMatcher(det, device=cuda), MultiClassMatcher(det, device="cpu")
+    before = LR.similarity_local_sparse_cuda.launches
+    for thr in (55.0, 30.0):
+        g = gpu.match_arrays(w["rgb"], w["depth"], thr)
+        assert _same(g, cpu.match_arrays(w["rgb"], w["depth"], thr))
+    assert bool((g[3] >= 0).all())  # every class fills its 128 slots at 30
+    assert LR.similarity_local_sparse_cuda.launches == before + 2
+    key = lambda m: (m.class_id, m.template_id, m.x, m.y, m.similarity)  # noqa: E731
+    assert [key(m) for m in gpu.match(w["rgb"], w["depth"], 30.0)] == [key(m) for m in cpu.match(w["rgb"], w["depth"], 30.0)]
+
+
+def test_fused_multiclass_on_card_equals_cpu_and_waits_for_nothing(cuda):
+    """The cut workload through FusedMultiClassPipeline with the synthetic
+    benchmark's refine settings (8 hypotheses per class here): the card
+    equals the CPU at 55 and 30, and a frame runs with every synchronizing
+    call raising."""
+    from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline
+
+    w, det = _multiclass(cuda)
+    args = dict(synthetic.multiclass_pipeline_args(w), max_refine=8)
+    gpu = FusedMultiClassPipeline(det, w["K"], device=cuda, **args)
+    cpu = FusedMultiClassPipeline(det, w["K"], device="cpu", **args)
+    for thr in (55.0, 30.0):
+        g, c = gpu(w["rgb"], w["depth"], thr), cpu(w["rgb"], w["depth"], thr)
+        assert all(torch.equal(a.cpu(), b) for a, b in zip((g[0], g[1], g[2], g[3], g[8]), (c[0], c[1], c[2], c[3], c[8])))
+        assert _close((g[4], g[5], g[6], g[7]), (c[4], c[5], c[6], c[7]), (1e-4, 0.1, 2.0 / 512, 2.0 / 512))
+    assert bool(c[8].all())  # 3 x 8 active at threshold 30
+    rgb, dep = torch.from_numpy(w["rgb"]).to(cuda), torch.from_numpy(w["depth"].astype(np.int32)).to(cuda)
+    gpu(rgb, dep, 30.0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gpu(rgb, dep, 30.0)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(out[4].cpu(), g[4].cpu())

@@ -152,11 +152,38 @@ def test_detector_needs_cuda_unless_cpu_is_asked():
     assert TD.Detector(device="cpu").device.type == "cpu"
 
 
-def test_coarse_matmul_branch_not_ported():
+def test_coarse_matmul_branch_not_ported(monkeypatch):
+    """Above 2e10 multiply-adds the coarse level goes to the matmul scorer
+    when the feature lists are given (it used to raise there), and to the
+    dense conv without them, as in the JAX package.  The scorers are
+    stubbed: this checks the dispatch; tests/test_torch_similarity_matmul.py
+    checks the branch's values."""
     kern = torch.zeros((4000, 16, 81, 81), dtype=torch.int8)
     maps = torch.zeros((1, 16, 480, 640), dtype=torch.uint8)
-    with pytest.raises(NotImplementedError, match="multi-scale"):
-        TD.coarse_scores([maps, maps], [kern, kern], [torch.ones(4000)] * 2, (4, 4))
+    feats = torch.zeros((4000, 8, 3), dtype=torch.int32)
+    valids = torch.ones((4000, 8), dtype=torch.bool)
+    assert TD.coarse_macs(maps.shape, kern.shape, 4) > TD._MATMUL_MACS
+    taken = []
+
+    def matmul(maps_, feats_, valid_, scales, t, kh, kw):
+        taken.append(("matmul", t, kh, kw, scales.tolist()))
+        nf = torch.arange(feats_.shape[0], dtype=torch.int32) % 2
+        return torch.full((1, feats_.shape[0], 2, 2), 8.0), nf
+
+    def dense(maps_, kern_, t):
+        taken.append(("dense", t))
+        return torch.zeros((1, kern_.shape[0], 2, 2))
+
+    monkeypatch.setattr(TD, "similarity_multiscale_matmul", matmul)
+    monkeypatch.setattr(TD, "similarity_dense", dense)
+    nf = [torch.full((4000,), 8)] * 2
+    scores = TD.coarse_scores([maps, maps], [kern, kern], nf, (4, 4), [feats, feats], [valids, valids])
+    assert taken == [("matmul", 4, 81, 81, [1.0])]
+    # 100 * 8 / (4 * nfeat) where the scale has features, -1 where it has none.
+    assert torch.equal(scores[0, 1::2], torch.full((2000, 2, 2), 200.0))
+    assert torch.equal(scores[0, 0::2], torch.full((2000, 2, 2), -1.0))
+    TD.coarse_scores([maps, maps], [kern, kern], nf, (4, 4))
+    assert taken[-1] == ("dense", 4)
 
 
 def test_planted_golden_on_cpu():

@@ -1,6 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-``Detector``, ``extract_template`` and ``TemplateBank.add_template`` resolve
+``Detector``, ``MultiClassMatcher``, the fused pipelines,
+``extract_template`` and ``TemplateBank.add_template`` resolve
 their device the same way (``sixdpose_tpu_torch.device.resolve_device``):
 without CUDA their defaults raise one and the same RuntimeError.  CUDA is
 hidden with monkeypatch, so the test runs the same on every machine.
@@ -90,3 +91,41 @@ def test_refine_entry_points_default_to_the_card(monkeypatch):
     assert len(set(messages.values())) == 1, messages
     out = TP.FusedPipeline(det, "obj", K, max_refine=2, device="cpu")(rgb, depth, 50.0)
     assert out[4].device.type == "cpu" and out[4].shape == (2, 3, 3)
+
+
+def test_multiclass_entry_points_default_to_the_card(monkeypatch):
+    """MultiClassMatcher and FusedMultiClassPipeline raise the same
+    RuntimeError as the other entry points without CUDA unless the CPU is
+    asked for, and then run there."""
+    from sixdpose_tpu_torch import synthetic
+    from sixdpose_tpu_torch.models import pipeline as TP
+    from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
+
+    rgb, mask = _view()
+    depth = np.where(mask > 0, 800, 900).astype(np.uint16)
+    det = Detector(CFG, device="cpu")
+    info = {
+        "icp_points": np.random.default_rng(0).uniform(-0.02, 0.02, (64, 3)).astype(np.float32),
+        "cam_R_w2c": np.eye(3), "cam_t_w2c": np.zeros((3, 1)), "render_bbox": np.array([42, 26, 86, 70]),
+    }
+    for cid in ("a", "b"):
+        assert det.bank.add_template(cid, rgb, None, mask, info, device="cpu") == 0
+    K = synthetic.BENCH_K
+    vpts = {c: info["icp_points"] * 1000.0 for c in ("a", "b")}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "Detector": lambda **kw: Detector(CFG, **kw),
+        "MultiClassMatcher": lambda **kw: MultiClassMatcher(det, **kw),
+        "FusedMultiClassPipeline": lambda **kw: TP.FusedMultiClassPipeline(det, K, max_refine=2, verify_pts=vpts, **kw),
+    }
+    messages = {}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA") as err:
+            call()
+        messages[name] = str(err.value)
+        assert call(device="cpu").device.type == "cpu"
+    assert len(set(messages.values())) == 1, messages
+    out = MultiClassMatcher(det, device="cpu").match_arrays(rgb, None, 50.0)
+    assert out[0].device.type == "cpu" and out[0].shape == (2, CFG.top_k)
+    fused = TP.FusedMultiClassPipeline(det, K, max_refine=2, verify_pts=vpts, device="cpu")(rgb, depth, 50.0)
+    assert fused[4].device.type == "cpu" and fused[4].shape == (2, 2, 3, 3)

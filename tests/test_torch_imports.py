@@ -43,7 +43,7 @@ except ImportError:
     pass
 else:
     raise SystemExit("the blocker let sixdpose_tpu through")
-print("imported", len(names), "modules and chip_smoke")
+print("imported", len(names), "modules and chip_smoke:", " ".join(names))
 """
 
 
@@ -54,6 +54,8 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "chip_smoke" in out.stdout
+    for name in ("models.multiclass", "models.pipeline", "ops.similarity", "convert", "synthetic"):
+        assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 
 def test_port_sources_name_no_jax():

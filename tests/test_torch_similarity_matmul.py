@@ -1,0 +1,147 @@
+"""Port parity of the shift-bucketed matmul coarse scorer
+(``ops/similarity.py::similarity_multiscale_matmul``, ``matmul_shift_sum``
+and the weight build) and of ``coarse_scores``' matmul branch against the
+JAX package, on the CPU.
+
+Every value is a sum of small integers in float32 or an integer count, so
+every comparison is exact.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+jax = pytest.importorskip("jax")
+jnp = jax.numpy
+
+from sixdpose_tpu.models import detector as JD
+from sixdpose_tpu.ops import similarity as JS
+from sixdpose_tpu_torch.models import detector as TD
+from sixdpose_tpu_torch.ops import similarity as TS
+
+
+def _case(seed, c=16, h=96, w=128, n=23, f=37, kh=33, kw=41, b=None, spill=6):
+    """Random maps in 0..4 and feature lists reaching ``spill`` pixels past
+    the kernel extent (clipped there), with padded tails."""
+    rng = np.random.default_rng(seed)
+    shape = (c, h, w) if b is None else (b, c, h, w)
+    maps = rng.integers(0, 5, shape).astype(np.uint8)
+    feats = np.stack(
+        [rng.integers(0, kw + spill, (n, f)), rng.integers(0, kh + spill, (n, f)), rng.integers(0, c, (n, f))], -1
+    ).astype(np.int32)
+    valid = rng.random((n, f)) < 0.85
+    valid[3, :] = False  # a template without features
+    valid[5, f // 2 :] = False
+    return maps, feats, valid
+
+
+def _jax(maps, feats, valid, scales, t, kh, kw):
+    raw, nf = JS.similarity_multiscale_matmul(
+        jnp.asarray(maps), jnp.asarray(feats), jnp.asarray(valid), jnp.asarray(scales, jnp.float32), t, kh, kw
+    )
+    return np.asarray(raw), np.asarray(nf)
+
+
+def _torch(maps, feats, valid, scales, t, kh, kw):
+    raw, nf = TS.similarity_multiscale_matmul(
+        torch.from_numpy(maps), torch.from_numpy(feats), torch.from_numpy(valid),
+        torch.tensor(scales, dtype=torch.float32), t, kh, kw,
+    )
+    return raw.numpy(), nf.numpy()
+
+
+@pytest.mark.parametrize(
+    "scales,t",
+    [([1.0], 8), ([1.0], 4), ([0.7, 1.0, 1.3], 8), ([1.0, 0.0, 0.55], 4), ([0.0], 8), ([0.83, 1.17], 5)],
+)
+def test_multiscale_matmul_matches_jax(scales, t):
+    maps, feats, valid = _case(int(t * 10 + len(scales)))
+    want_raw, want_nf = _jax(maps, feats, valid, scales, t, 33, 41)
+    got_raw, got_nf = _torch(maps, feats, valid, scales, t, 33, 41)
+    assert got_raw.dtype == np.float32 and got_nf.dtype == np.int32
+    np.testing.assert_array_equal(got_nf, want_nf)
+    np.testing.assert_array_equal(got_raw, want_raw)
+    if 0.0 in scales:  # an invalid proposal scores nothing
+        s0 = scales.index(0.0) * feats.shape[0]
+        assert not got_nf[s0 : s0 + feats.shape[0]].any() and not got_raw[s0 : s0 + feats.shape[0]].any()
+
+
+def test_chunked_build_equals_one_chunk(monkeypatch):
+    """Row chunks of W (here 7 rows of a 3 x 23-row sweep) give the result
+    of one chunk."""
+    maps, feats, valid = _case(3)
+    scales = [0.9, 1.0, 1.1]
+    whole = _torch(maps, feats, valid, scales, 8, 33, 41)
+    bh_ct2 = 5 * 6 * 16 * 64  # khb * kwb buckets x s2d channels at t = 8
+    monkeypatch.setattr(TS, "_W_CHUNK_BYTES", 7 * bh_ct2 * 4)
+    chunked = _torch(maps, feats, valid, scales, 8, 33, 41)
+    for a, b in zip(whole, chunked):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_batch_of_frames_equals_single_frames():
+    maps, feats, valid = _case(4, b=3)
+    raw_b, nf_b = _torch(maps, feats, valid, [1.0, 0.8], 8, 33, 41)
+    assert raw_b.shape[0] == 3
+    for i in range(3):
+        raw, nf = _torch(maps[i], feats, valid, [1.0, 0.8], 8, 33, 41)
+        np.testing.assert_array_equal(raw_b[i], raw)
+        np.testing.assert_array_equal(nf_b, nf)
+
+
+@pytest.mark.parametrize("t", [4, 8])
+def test_scale_one_equals_dense_conv(t):
+    """At scale 1 the matmul scorer and the conv of the kernels built from
+    the same features give the same integers."""
+    maps, feats, valid = _case(5 + t)
+    kern = TS.build_template_kernels(feats, valid, 33, 41, 16)
+    dense = TS.similarity_dense(torch.from_numpy(maps), torch.from_numpy(kern), t).numpy()
+    raw, nf = _torch(maps, feats, valid, [1.0], t, 33, 41)
+    np.testing.assert_array_equal(raw, dense)
+    np.testing.assert_array_equal(nf, kern.reshape(len(kern), -1).sum(1))
+
+
+@pytest.mark.parametrize("scale", [1.0, 0.75])
+def test_bucket_weights_and_shift_sum_match_jax(scale):
+    """The scatter-add weight build equals the JAX package's host build
+    (``multiscale_weights_host_bin``), and ``matmul_shift_sum`` over those
+    weights equals the JAX contraction."""
+    maps, feats, valid = _case(9)
+    t, kh, kw = 8, 33, 41
+    w_j, nf_j = JS.multiscale_weights_host_bin(feats, valid, scale, t, kh, kw, 16)
+    khb, kwb = -(-kh // t), -(-kw // t)
+    table = TS.bucket_table(torch.from_numpy(feats), torch.from_numpy(valid), torch.tensor([scale]), t, kh, kw)
+    bucket, cprime, ok = table
+    w_t = TS._bucket_weights(bucket, cprime, ok, khb * kwb, 16 * t * t)
+    np.testing.assert_array_equal(w_t.numpy(), w_j.astype(np.float32))
+    np.testing.assert_array_equal(ok.sum(1).numpy(), nf_j)
+    want = np.asarray(JS.matmul_shift_sum(jnp.asarray(maps), jnp.asarray(w_j), t, khb, kwb))
+    got = TS.matmul_shift_sum(torch.from_numpy(maps), torch.from_numpy(w_j), t, khb, kwb).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_coarse_scores_matmul_branch_matches_jax(monkeypatch):
+    """The port's coarse_scores with the MAC line at 0 (so the small bank
+    takes the matmul branch) against the JAX matmul branch computed
+    explicitly: score_normalize(raw, max(nf, 1)), -1 where nf = 0."""
+    maps, feats, valid = _case(11, n=17, spill=0)
+    t_at_level = (4, 8)
+    kern = TS.build_template_kernels(feats, valid, 33, 41, 16)
+    raw, nf = JS.similarity_multiscale_matmul(
+        jnp.asarray(maps), jnp.asarray(feats), jnp.asarray(valid), jnp.ones((1,), jnp.float32), 8, 33, 41
+    )
+    want = JS.score_normalize(raw, jnp.maximum(nf, 1))
+    want = np.asarray(jnp.where(nf[:, None, None] > 0, want, -1.0))
+    monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
+    pyr = [None, torch.from_numpy(maps)]
+    kernels = [None, torch.from_numpy(kern)]
+    nfeats = [None, torch.from_numpy(valid.sum(1).astype(np.int32))]
+    got = TD.coarse_scores(pyr, kernels, nfeats, t_at_level, [None, torch.from_numpy(feats)], [None, torch.from_numpy(valid)])
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (got[3] == -1).all()
+    # The JAX dense branch on the same bank gives the same scores where a
+    # template has features.
+    dense = np.asarray(JD.coarse_scores((None, jnp.asarray(maps)), (None, jnp.asarray(kern)),
+                                        (None, jnp.asarray(valid.sum(1).astype(np.int32))), t_at_level))
+    has = valid.sum(1) > 0
+    np.testing.assert_array_equal(got.numpy()[has], dense[has])
