@@ -18,7 +18,13 @@ Drives the port's main paths, and checks every result:
   the multi-class match (``MultiClassMatcher``, whose coarse level, at
   2.7e10 multiply-adds, takes the shift-bucketed matmul scorer) and the
   fused multi-class frame (``FusedMultiClassPipeline``: 3456 ICP
-  candidates).
+  candidates);
+- at the full width of the JAX package's multi-scale sweep
+  (``tools/bench_multiscale_multiclass.py``: 15 classes x 337 templates in
+  one bank, VGA RGB-D, ``t_at_level=(5, 8)``, top_k 128, 5 depth proposals,
+  train depth 600 mm, drawn by ``synthetic.multiscale_workload``):
+  multi-scale matching of every class in one pass (``MultiScaleMultiClass``)
+  and of one class at a time (``MultiScaleDetector``).
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -35,30 +41,39 @@ non-zero:
    at 30 (every class fills its 128 candidates: a pool of 1152 in one
    refine launch), launch counts set to 0 just before and read just after;
    the coarse branch taken and its multiply-adds; equal to the CPU run;
-5. kernel_parity: the local-refine kernel against its plain version on the
+5. match_ms: ``MultiScaleMultiClass`` on the multi-scale workload at 70 and
+   at 30 (every class fills its 128 candidates: a scaled pool of 1920 in
+   one refine launch), and ``MultiScaleDetector`` on every class, launch
+   counts set to 0 just before and read just after; equal to the CPU run,
+   each class's row equals ``MultiScaleDetector``'s, at least 3 valid
+   proposals and one empty, and one frame under
+   ``set_sync_debug_mode("error")``;
+6. kernel_parity: the local-refine kernel against its plain version on the
    card, exactly, at the shapes of tests/test_pallas.py, at F = 700, at the
    levelup maximum F = 8191 and at F = 9000 (two table passes), and at the
-   inputs the main paths gave it (bench B=1 and B=4, the multi-class pool);
-6. coarse_matmul: the matmul scorer on the card against its CPU run and
+   inputs the main paths gave it (bench B=1 and B=4, the multi-class pool,
+   the scaled multi-scale pool);
+7. coarse_matmul: the matmul scorer on the card against its CPU run and
    against the dense conv of kernels built from the same features, at the
    full-width bank (scale 1, and four scales one of them 0), and at the
    LINEMOD-scale VGA call (15 x 337 templates, about 2e11 multiply-adds;
    against the conv on the card only);
-7. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
+8. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
-8. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
+9. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
    75 (as bench.py) and 30 (8 live candidates refine), with the kernels'
    launch counts set to 0 just before and read just after, and one more
    frame under ``torch.cuda.set_sync_debug_mode("error")`` (nothing may
    wait for the device); the GPU results must equal the port's CPU results
    within the tolerances of ``FUSED_TOL``;
-9. refine_mc: the same for ``FusedMultiClassPipeline`` on the multi-class
+10. refine_mc: the same for ``FusedMultiClassPipeline`` on the multi-class
    workload at 55 and 30 (96 active hypotheses per class);
-10. refine_golden and mc_golden: ``FusedPipeline`` and the multi-class
-   match and ``FusedMultiClassPipeline`` on the card against the JAX
+11. refine_golden, mc_golden and ms_golden: ``FusedPipeline``, the
+   multi-class match and ``FusedMultiClassPipeline`` on the card against the JAX
    goldens of the planted scenes, each planted object's top pose moving it
-   by its planted shift;
-11. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+   by its planted shift; both multi-scale matchers against the JAX golden
+   of the rescaled planted object, found at its planted scale and place;
+12. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -69,18 +84,24 @@ non-zero:
    requests; at the B=1 call also one PyTorch library call computing the
    same function.  Under ``multiclass``: the multi-class match frame and
    the fused multi-class frame (whole and by stage, with bounds), the
-   kernel at the multi-class call, and the matmul scorer at full width and
-   at the LINEMOD-scale call beside its bound, the dense conv and the same
-   product as one ``torch.matmul``;
-12. profile, profile_refine, profile_mc: torch.profiler's split of a B=1
-   match frame, of a B=1 detect+refine frame and of a fused multi-class
-   frame into device kernels and host ops, and the device's idle share;
-13. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+   kernel at the multi-class call (and one grouped conv there), and the
+   matmul scorer at full width and at the LINEMOD-scale call beside its
+   bound, the dense conv and the same product as one ``torch.matmul``.
+   Under ``multiscale``: the one-pass frame and the single-class frame,
+   whole and by stage (pyramid, proposals, coarse sweep, selection, refine,
+   sort and NMS), the coarse sweep beside its bound, one ``torch.matmul`` of the same product and the
+   dense conv of scaled kernels, and the kernel at the K=1920 scaled call
+   beside its bound, its plain version and one grouped conv;
+13. profile, profile_refine, profile_mc, profile_ms: torch.profiler's split
+   of a B=1 match frame, of a B=1 detect+refine frame, of a fused
+   multi-class frame and of a one-pass multi-scale frame into device
+   kernels and host ops, and the device's idle share;
+14. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
    source, the TPU kernels it replaces, its launches in the main paths'
    phases (in all and per phase), its error against the plain version, and
    its time beside the plain version's, the library call's and the bound
-   (at the bench B=1 call and at the multi-class call); then the
-   ``nvidia-smi`` line again.
+   (at the bench B=1 call, the multi-class call and the multi-scale call);
+   then the ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script prints no result and exits 2.
@@ -103,23 +124,28 @@ from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
 from sixdpose_tpu_torch.convert import refine_bank_from_numpy
 from sixdpose_tpu_torch.models import detector as D
+from sixdpose_tpu_torch.models import multiscale as M
 from sixdpose_tpu_torch.models import pipeline as P
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
+from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops import similarity as S
+from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
     _bucket_slices,
     _bucket_weights,
     _feature_table,
     _local_conv_operands,
+    _s2d_kernels,
     _s2d_maps,
     bucket_table,
+    build_kernels_scaled,
     build_template_kernels,
     similarity_dense,
-    similarity_local,
+    similarity_dense_pre_s2d,
     similarity_local_sparse,
     similarity_multiscale_matmul,
 )
@@ -263,7 +289,7 @@ def _run(fn, c):
     return fn(c["maps"], c["feats"], c["valid"], c["origins"], c["t"], c["window"], c["scale"], c["active"])
 
 
-def phase_kernel_parity(dev, calls, mc_calls):
+def phase_kernel_parity(dev, calls, mc_calls, ms_call):
     t0 = time.perf_counter()
     rng = np.random.default_rng(42)
     cases = {
@@ -284,6 +310,7 @@ def phase_kernel_parity(dev, calls, mc_calls):
     cases["main_path_B1"] = next(c for c in calls if c["maps"].shape[0] == 1)
     cases["main_path_B4"] = next(c for c in calls if c["maps"].shape[0] == 4)
     cases["multiclass_pool_K1152"] = mc_calls[-1]  # the full-width multi-class call at LOW_THRESHOLD
+    cases["multiscale_pool_K1920_scaled"] = ms_call  # the full-width multi-scale call at LOW_THRESHOLD
     results = {}
     max_err = 0.0
     for name, c in cases.items():
@@ -649,6 +676,251 @@ def phase_mc_golden(dev):
     emit("mc_golden", t0, match_equals_jax=True, fused_vs_jax=d, miss_mm=misses)
 
 
+# -- multi-scale matching: MultiScaleMultiClass and MultiScaleDetector -------
+
+MS_OUT = ("tid", "x", "y", "score", "keep", "depth_mm", "scale")
+MS_STAGES = ("pyramid", "proposals", "coarse_sweep", "selection", "refine", "sort_nms")
+
+
+def multiscale_setup(dev, classes: int = synthetic.MS_CLASSES, views: int = synthetic.MS_VIEWS):
+    """The JAX package's multi-scale sweep at full width
+    (``synthetic.multiscale_workload``: 15 x 337 templates, VGA, 5
+    proposals), its detector, and its matchers ``MultiScaleMultiClass`` and
+    ``MultiScaleDetector``, each on the card and on the CPU."""
+    t0 = time.perf_counter()
+    w = synthetic.multiscale_workload(classes, views)
+    det = synthetic.multiscale_detector(w, dev)
+    kw = dict(num_scales=w["num_scales"])
+    ms = {
+        "card": MultiScaleMultiClass(det, w["train_depth"], device=dev, **kw),
+        "cpu": MultiScaleMultiClass(det, w["train_depth"], device="cpu", **kw),
+        "single": MultiScaleDetector(det, w["train_depth"], device=dev, **kw),
+        "single_cpu": MultiScaleDetector(det, w["train_depth"], device="cpu", **kw),
+    }
+    torch.cuda.synchronize()
+    return w, ms, time.perf_counter() - t0
+
+
+def _all_equal(a, b) -> bool:
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in zip(a, b))
+
+
+def _best(out, ci=None) -> list:
+    """(tid, x, y, score, depth_mm, scale) of the first kept live entry of a
+    multi-scale result (of class row ``ci``), or None."""
+    rows = [a.cpu() if ci is None else a[ci].cpu() for a in out]
+    live = torch.nonzero(rows[4] & (rows[3] >= 0)).flatten()
+    if not len(live):
+        return None
+    i = int(live[0])
+    return [int(rows[0][i]), int(rows[1][i]), int(rows[2][i]), float(rows[3][i]), float(rows[5][i]), float(rows[6][i])]
+
+
+def phase_match_ms(dev, w, ms, setup_s: float):
+    """The full-width multi-scale workload on the card, with the kernels'
+    launch counts set to 0 just before and read just after:
+    ``MultiScaleMultiClass`` at 70 and LOW_THRESHOLD (equal to the CPU
+    run), ``MultiScaleDetector`` on every class (each class's row of the one-pass result equals it; one
+    class against its CPU run), and one frame under
+    ``set_sync_debug_mode("error")``."""
+    t0 = time.perf_counter()
+    rgb, dep = w["rgb"], w["depth"]
+    thresholds = (w["threshold"], LOW_THRESHOLD)
+    mc, single = ms["card"], ms["single"]
+    cids = mc.class_ids
+    one = cids[len(cids) // 2]
+    rgb_t, dep_t = torch.from_numpy(rgb).to(dev), torch.from_numpy(dep.astype(np.int32)).to(dev)
+    calls: list = []
+    LR.similarity_local_sparse_cuda.launches = 0
+    with recording_refine_calls(calls):
+        gpu = {thr: mc.match_arrays(rgb, dep, thr) for thr in thresholds}
+        per_class = {thr: {cid: single.match_arrays(rgb, dep, thr, cid) for cid in cids} for thr in thresholds}
+        matches = {thr: mc.match(rgb, dep, thr) for thr in thresholds}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            unsynced = mc.match_arrays(rgb_t, dep_t, LOW_THRESHOLD)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+    launches = LR.similarity_local_sparse_cuda.launches
+    levels_below = len(w["cfg"].t_at_level) - 1
+    frames = len(thresholds) + len(thresholds) * len(cids) + len(thresholds) + 1
+    check(launches == len(calls) == frames * levels_below, f"{launches} refine launches, {len(calls)} calls, {frames} frames")
+    check(all(c["scale"] is not None for c in calls), "a multi-scale refine call without scales")
+    # The one-pass calls (K = classes x top_k) in order: match_arrays() at
+    # each threshold, match() at each, the sync-free frame.
+    pool = len(cids) * w["cfg"].top_k
+    pool_calls = [c for c in calls if c["feats"].shape[0] == pool]
+    pool_thr = [*thresholds, *thresholds, LOW_THRESHOLD]
+    live_in = [int(c["active"].sum()) for c in pool_calls]
+    low_pool = [c for c, thr in zip(pool_calls, pool_thr) if thr == LOW_THRESHOLD]
+    check(len(pool_calls) == len(pool_thr) and all(int(c["active"].sum()) == pool for c in low_pool),
+          f"not {pool} live candidates in each one-pass refine call at {LOW_THRESHOLD}: {live_in}")
+
+    check(_all_equal(unsynced, gpu[LOW_THRESHOLD]), "a second card run of the same frame differs")
+    rows_equal, best = {}, {}
+    for thr in thresholds:
+        rows_equal[str(thr)] = all(_all_equal([a[ci] for a in gpu[thr]], per_class[thr][cid]) for ci, cid in enumerate(cids))
+        check(rows_equal[str(thr)], f"a class's row differs from MultiScaleDetector's at {thr}")
+        best[str(thr)] = [_best(gpu[thr], ci) for ci in range(len(cids))]
+        for ci, cid in enumerate(cids):
+            check(best[str(thr)][ci] == _best(per_class[thr][cid]),
+                  f"class {cid}'s best match differs from MultiScaleDetector's at {thr}")
+    t1 = time.perf_counter()
+    cpu = {thr: ms["cpu"].match_arrays(rgb, dep, thr) for thr in thresholds}
+    cpu_s = (time.perf_counter() - t1) / len(thresholds)
+    for thr in thresholds:
+        check(_all_equal(gpu[thr], cpu[thr]), f"MultiScaleMultiClass on the card differs from the CPU at {thr}")
+        check(_all_equal(per_class[thr][one], ms["single_cpu"].match_arrays(rgb, dep, thr, one)),
+              f"MultiScaleDetector on the card differs from the CPU at {thr}")
+    bin_idx, depths, counts = propose_depth_bins(dep_t)
+    n_valid = int((counts > 0).sum())
+    check(n_valid >= 3 and n_valid < len(counts), f"{n_valid} valid proposals of {len(counts)}")
+    live = {str(thr): (gpu[thr][3] >= 0).sum(1).tolist() for thr in thresholds}
+    emit("match_ms", t0, setup_seconds=round(setup_s, 3), classes=len(cids), templates=int(mc.bank.feats[0].shape[0]),
+         frame=list(rgb.shape), train_depth=w["train_depth"], t_at_level=list(w["cfg"].t_at_level),
+         proposals={"bin": bin_idx.tolist(), "depth_mm": depths.tolist(), "pixels": counts.tolist(),
+                    "scale": [float(v) for v in mc.bin_scales[bin_idx.long()].cpu() * (counts.cpu() > 0)]},
+         coarse_kernel=list(mc.bank.kdims[-1]), pad_kb=list(mc.bank.pad_kb),
+         launches=launches, frames=frames, live_into_pool_calls=live_in,
+         kernel_call={"maps": list(low_pool[0]["maps"].shape), "feats": list(low_pool[0]["feats"].shape),
+                      "t": low_pool[0]["t"], "scaled": True},
+         thresholds=list(thresholds), live_per_class=live, matches={str(t): len(m) for t, m in matches.items()},
+         gpu_equals_cpu=True, cpu_seconds_per_frame=cpu_s, sync_free_frame=True,
+         rows_equal_multiscale_detector=rows_equal, best_per_class_low=best[str(LOW_THRESHOLD)][:3])
+    return low_pool[-1], launches
+
+
+def phase_ms_golden(dev):
+    """The planted multi-scale golden of ``tools/torch_port_ms_golden.py`` on
+    the card: ``MultiScaleDetector`` and ``MultiScaleMultiClass`` equal the
+    JAX results on live entries, and the disc's top match is at its planted
+    depth, scale and position."""
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(TESTDATA, "planted_ms_golden.npz"))
+    cids = [str(c) for c in g["class_ids"]]
+    det = Detector.read_classes(os.path.join(TESTDATA, "planted_mc_bank.npz"),
+                                DetectorConfig(t_at_level=tuple(int(v) for v in g["t_at_level"])), device=dev)
+    rgb, depth = synthetic.planted_scene_scaled(*(int(v) for v in g["scene_xy"]), float(g["planted_scale"]),
+                                                int(g["scene_depth"]), seed=int(g["scene_seed"]))
+    kw = dict(num_scales=int(g["num_scales"]), device=dev)
+    thr = float(g["threshold"])
+    single = MultiScaleDetector(det, float(g["train_depth"]), **kw).match_arrays(rgb, depth, thr, "disc")
+    multi = MultiScaleMultiClass(det, float(g["train_depth"]), class_ids=cids, **kw).match_arrays(rgb, depth, thr)
+    tops = {}
+    for name, out, row in (("single", single, None), ("multi", multi, 0)):
+        golden = [g[f"{name}_{k}"] for k in MS_OUT]
+        check(same_live(golden[:5], out[:5]) and all(
+            np.array_equal(golden[i][golden[3] >= 0], out[i].cpu().numpy()[golden[3] >= 0]) for i in (5, 6)),
+            f"{name} differs from the JAX golden")
+        tops[name] = _best(out, row)
+        t = tops[name]
+        check(t is not None and t[0] == 0 and t[4] == float(g["scene_depth"]) and t[5] == float(g["planted_scale"])
+              and max(abs(t[1] - int(g["expected_xy"][0])), abs(t[2] - int(g["expected_xy"][1]))) <= int(g["tolerance_px"]),
+              f"the disc's top {name} match {t} is not the planted one")
+    emit("ms_golden", t0, equals_jax=True, top_match=tops, planted={"xy": g["expected_xy"].tolist(),
+         "depth_mm": int(g["scene_depth"]), "scale": float(g["planted_scale"])})
+
+
+def ms_stage_events(marks: list):
+    """Events at the stage boundaries of the multi-scale cores: after the
+    pyramid, after the proposals, after the coarse sweep, before and after
+    the refinement (``MS_STAGES``)."""
+    return wrapped_stages(M, marks, {"frame_response_pyramid": (False, True), "proposals": (False, True),
+                                     "coarse_sweep": (False, True), "pyramid_refine": (True, True)})
+
+
+def time_sweep(mc, rgb_t, dep_t, cfg) -> dict:
+    """The full-width frame's coarse sweep (15 x 337 templates at 5
+    proposals) beside its bound, the same product as one
+    ``torch.matmul`` and the dense conv of ``build_kernels_scaled`` kernels
+    (CUDA events over whole eager calls; each checked against the sweep)."""
+    t = cfg.t_at_level[-1]
+    pyr = M.frame_response_pyramid(rgb_t, dep_t, cfg, rgb_t.device)
+    _, _, valid, scales = M.proposals(dep_t, mc.bin_scales, mc.num_scales, mc.bins)
+    pb, qb = mc.bank.pad_kb
+    maps = torch.nn.functional.pad(pyr[-1], (0, qb * t, 0, pb * t))
+    feats, valid_f = mc.bank.feats[-1], mc.bank.valids[-1]
+    kh, kw = mc.bank.kdims[-1]
+    khb, kwb = -(-kh // t), -(-kw // t)
+    scatter = lambda: similarity_multiscale_matmul(maps, feats, valid_f, scales, t, kh, kw)  # noqa: E731
+    raw, nf = scatter()
+    rows_ok = valid[:, None].expand(len(scales), feats.shape[0]).reshape(-1)
+    slices = _bucket_slices(_s2d_maps(maps[None], t), khb, kwb)
+    bh, ct2, p = slices.shape
+    w_b = _bucket_weights(*bucket_table(feats, valid_f, scales, t, kh, kw), bh, ct2)
+    lhs, rhs = w_b.transpose(0, 1).reshape(w_b.shape[1], bh * ct2), slices.reshape(bh * ct2, p)
+    del w_b
+    check(torch.equal(torch.matmul(lhs, rhs).reshape(raw.shape), raw), "one matmul of the same product differs")
+    out = {
+        "maps": list(maps.shape), "rows": int(raw.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
+        "buckets": bh, "placements": p, "w_bytes_float32": lhs.numel() * 4,
+        "scatter_ms": cuda_ms(scatter, reps=5),
+        "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=5),
+        "bound": scorer_bound(maps, feats, nf, p),
+    }
+    out["bound"]["dense_matmul_floor_ms"] = 2 * bh * lhs.shape[0] * ct2 * p / FP32_OPS_PER_S * 1e3
+    del lhs
+    kern = torch.cat([_s2d_kernels(build_kernels_scaled(feats, valid_f, sc, kh, kw, maps.shape[0]), t) for sc in scales])
+    dense = similarity_dense_pre_s2d(maps, kern, t)
+    check(torch.equal(dense[rows_ok], raw[rows_ok]), "the dense conv of scaled kernels differs from the sweep")
+    out["dense_conv_ms"] = cuda_ms(lambda: similarity_dense_pre_s2d(maps, kern, t), reps=3)
+    del kern, dense
+    torch.cuda.empty_cache()
+    return out
+
+
+def time_refine_library(c, kh: int, kw: int, reps: int = 3, inner: int = 1) -> float:
+    """One grouped ``F.conv2d`` computing the refine call ``c`` (each
+    candidate's own kernel of extent (kh, kw), built from its features at
+    its scale, as ``similarity_local``), ``inner`` calls replayed from a
+    CUDA graph, median of ``reps``; checked against the kernel on live
+    candidates."""
+    scale = c["scale"][:, None] if c["scale"] is not None else 1.0
+    kernels = build_kernels_scaled(c["feats"], c["valid"], scale, kh, kw, c["maps"].shape[0])
+    lhs, rhs = _local_conv_operands(c["maps"], kernels, c["origins"], c["t"], c["window"])
+    conv = lambda: torch.nn.functional.conv2d(lhs, rhs, groups=rhs.shape[0])  # noqa: E731
+    live = c["active"]
+    check(torch.equal(torch.round(conv())[0][live], _run(LR.similarity_local_sparse_cuda, c)[0][live]),
+          "the grouped conv disagrees with the kernel on live candidates")
+    ms = graph_ms(conv, reps=reps, inner=inner)
+    del lhs, rhs, kernels
+    torch.cuda.empty_cache()
+    return ms
+
+
+def timing_multiscale(dev, w, ms, ms_call) -> dict:
+    """CUDA-event medians of the full-width multi-scale frame and of the
+    single-class frame (its last class), whole (5 eager calls) and by stage (5,
+    events at ``MS_STAGES``' boundaries), at 70 and LOW_THRESHOLD; the coarse
+    sweep (``time_sweep``); the kernel at the K=1920 scaled call beside its
+    bound, its plain version and one grouped conv."""
+    rgb_t = torch.from_numpy(w["rgb"]).to(dev)
+    dep_t = torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
+    mc, single = ms["card"], ms["single"]
+    cid = mc.class_ids[-1]
+    runs = {
+        "one_pass": lambda t: mc.match_arrays(rgb_t, dep_t, t),
+        "single_class": lambda t: single.match_arrays(rgb_t, dep_t, t, cid),
+    }
+    thresholds = (w["threshold"], LOW_THRESHOLD)
+    out = {
+        "frame_ms": {n: {str(t): cuda_ms(lambda t=t, r=r: r(t), reps=5) for t in thresholds} for n, r in runs.items()},
+        "stage_ms": {n: {str(t): staged_ms(lambda t=t, r=r: r(t), 5, MS_STAGES, ms_stage_events) for t in thresholds}
+                     for n, r in runs.items()},
+        "single_class": cid,
+    }
+    torch.cuda.reset_peak_memory_stats()
+    mc.match_arrays(rgb_t, dep_t, LOW_THRESHOLD)
+    torch.cuda.synchronize()
+    out["peak_memory_bytes_one_pass_frame"] = torch.cuda.max_memory_allocated()
+    out["coarse_sweep"] = time_sweep(mc, rgb_t, dep_t, w["cfg"])
+    out["refine_kernel_K1920_scaled"] = time_refine(ms_call)
+    out["refine_kernel_K1920_scaled"]["library_grouped_conv_ms"] = time_refine_library(ms_call, *mc.bank.kdims[0])
+    return out
+
+
 def cuda_ms(fn, reps: int, inner: int = 1) -> float:
     """Median over ``reps`` CUDA-event windows of ``inner`` calls, per call."""
     fn()
@@ -749,15 +1021,9 @@ def time_refine(c) -> dict:
     }
 
 
-@contextmanager
-def stage_events(marks: list, match: str = "detect_frame_core"):
-    """Record a CUDA event at each stage boundary of ``detect_refine_core``
-    (or, with ``match="match_multiclass_core"``, of
-    ``detect_refine_multiclass_core``): after the match, before the scene
-    maps, and before and after ICP (the pipeline module's own names,
-    wrapped for the duration)."""
-    original = {n: getattr(P, n) for n in (match, "backproject", "icp_batch")}
-
+def _marking(marks: list):
+    """A wrapper maker: ``wrap(fn, before, after)`` records a CUDA event into
+    ``marks`` before and/or after each call of ``fn``."""
     def mark():
         event = torch.cuda.Event(enable_timing=True)
         event.record()
@@ -773,35 +1039,59 @@ def stage_events(marks: list, match: str = "detect_frame_core"):
             return out
         return wrapped
 
-    setattr(P, match, wrap(original[match], False, True))
-    P.backproject = wrap(original["backproject"], True, False)
-    P.icp_batch = wrap(original["icp_batch"], True, True)
+    return wrap
+
+
+@contextmanager
+def wrapped_stages(module, marks: list, points: dict):
+    """Record a CUDA event before and/or after each call of ``module``'s
+    functions named in ``points`` (name -> (before, after)), for the
+    duration."""
+    original = {n: getattr(module, n) for n in points}
+    wrap = _marking(marks)
+    for name, (before, after) in points.items():
+        setattr(module, name, wrap(original[name], before, after))
     try:
         yield
     finally:
         for name, fn in original.items():
-            setattr(P, name, fn)
+            setattr(module, name, fn)
+
+
+def stage_events(marks: list, match: str = "detect_frame_core"):
+    """Events at each stage boundary of ``detect_refine_core`` (or, with
+    ``match="match_multiclass_core"``, of ``detect_refine_multiclass_core``):
+    after the match, before the scene maps, and before and after ICP (the
+    pipeline module's own names, wrapped for the duration)."""
+    return wrapped_stages(P, marks, {match: (False, True), "backproject": (True, False), "icp_batch": (True, True)})
+
+
+def staged_ms(call, reps: int, stages, events) -> dict:
+    """Median ms of each of ``stages`` of ``call()`` over ``reps`` calls,
+    between CUDA events recorded at the stage boundaries by ``events(marks)``
+    (one event per boundary between consecutive stages)."""
+    call()
+    torch.cuda.synchronize()
+    per = {s: [] for s in stages}
+    for _ in range(reps):
+        marks: list = []
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with events(marks):
+            start.record()
+            call()
+            end.record()
+        end.synchronize()
+        bounds = [start, *marks, end]
+        check(len(bounds) == len(stages) + 1, f"{len(bounds)} stage events for {len(stages)} stages")
+        for stage, a, b in zip(stages, bounds, bounds[1:]):
+            per[stage].append(a.elapsed_time(b))
+    return {s: statistics.median(v) for s, v in per.items()}
 
 
 def stage_ms(run, rgb, dep, threshold: float, reps: int, match: str = "detect_frame_core") -> dict:
     """Median ms of each of ``STAGES`` of a detect+refine frame over ``reps``
-    frames, between CUDA events recorded at the stage boundaries."""
-    run(rgb, dep, threshold)
-    torch.cuda.synchronize()
-    per = {s: [] for s in STAGES}
-    for _ in range(reps):
-        marks: list = []
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        with stage_events(marks, match):
-            start.record()
-            run(rgb, dep, threshold)
-            end.record()
-        end.synchronize()
-        events = [start, *marks, end]
-        check(len(events) == len(STAGES) + 1, f"{len(events)} stage events for {len(STAGES)} stages")
-        for stage, a, b in zip(STAGES, events, events[1:]):
-            per[stage].append(a.elapsed_time(b))
-    return {s: statistics.median(v) for s, v in per.items()}
+    frames."""
+    return staged_ms(lambda: run(rgb, dep, threshold), reps, STAGES, lambda marks: stage_events(marks, match))
 
 
 # Float operations per unit of work, counted from the code: per pixel of the
@@ -861,11 +1151,12 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     out["fused_frame_bounds"] = bounds
     out["icp_candidates"] = k
     out["refine_kernel_K1152"] = time_refine(mc_call)
+    out["refine_kernel_K1152"]["library_grouped_conv_ms"] = time_refine_library(mc_call, *mc.bank.kernels[0].shape[-2:])
     out["matmul_scorer"] = {"full_width": time_scorer(*full_case), "linemod_15x337_vga": time_scorer(*lm_case)}
     return out
 
 
-def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, multiclass):
+def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, multiclass, multiscale):
     t0 = time.perf_counter()
     bank = det.device_bank(cid)
     rgb1 = torch.from_numpy(frames[0]).to(dev)
@@ -895,17 +1186,8 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
     c4 = [c for c in calls if c["maps"].shape[0] == 4][-1]
     refine = {"B1_level0": time_refine(c), "B4_level0": time_refine(c4), "pool_K1020_F136": time_refine(pool_case)}
     # At the B=1 call, one PyTorch call computing the same function: the
-    # grouped conv of similarity_local over the candidates' template
-    # kernels.  The recorded feature lists are rows of the bank's level-0
-    # lists; matching them recovers each candidate's template id.
-    rows_equal = (c["feats"][:, None] == bank.feats[0][None]).all(-1).all(-1)  # (K, N)
-    kernels_sel = bank.kernels[0][rows_equal.to(torch.int8).argmax(dim=1)]
-    lhs, rhs = _local_conv_operands(c["maps"], kernels_sel, c["origins"], c["t"], c["window"])
-    lib_ms = graph_ms(lambda: torch.nn.functional.conv2d(lhs, rhs, groups=rhs.shape[0]), reps=7, inner=3)
-    live = c["active"]
-    lib_scores = similarity_local(c["maps"], kernels_sel, c["origins"], c["t"])
-    check(torch.equal(lib_scores[live], _run(LR.similarity_local_sparse_cuda, c)[0][live]),
-          "the grouped conv disagrees with the kernel on live candidates")
+    # grouped conv of similarity_local over the candidates' kernels.
+    lib_ms = time_refine_library(c, *bank.kernels[0].shape[-2:], reps=7, inner=3)
     refine["B1_level0"]["library_grouped_conv_ms"] = lib_ms
     emit(
         "timing", t0, nvidia_smi=nvidia_smi(),
@@ -915,12 +1197,15 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
         refine_frame_bounds=bounds,
         refine=refine,
         multiclass=multiclass,
+        multiscale=multiscale,
         method=("CUDA events, medians; detect_frame_core and detect_refine_core: whole eager calls (20, or 10 "
                 "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
                 "main path; kernel_eager_ms: the same 100 launches issued from Python; multiclass: match frame 10, "
                 "fused frame and its stage split 5 whole eager calls, matmul scorer, dense conv and one matmul 10 "
-                "eager calls"),
+                "eager calls, grouped conv at K=1152 1 call replayed from one CUDA graph; multiscale: frames and their "
+                "stage split 5 whole eager calls, coarse sweep and one matmul 5 eager calls, dense conv 3, kernel as "
+                "refine, grouped conv 1 call replayed from one CUDA graph"),
     )
     b1 = refine["B1_level0"]
     return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
@@ -990,18 +1275,24 @@ def main() -> int:
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
     w, mc, mc_cpu, pipe, pipe_cpu, setup_s = multiclass_setup(dev)
     mc_calls, mc_launches = phase_match_mc(dev, w, mc, mc_cpu, setup_s)
-    max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls)
+    w_ms, ms, ms_setup_s = multiscale_setup(dev)
+    ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
+    max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls, ms_call)
     full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
     phase_match_golden(dev)
     launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
     mc_refine_launches = phase_refine_mc(dev, w, pipe, pipe_cpu)
     phase_refine_golden(dev)
     phase_mc_golden(dev)
+    phase_ms_golden(dev)
+    t0 = time.perf_counter()
+    multiscale = timing_multiscale(dev, w_ms, ms, ms_call)
+    multiscale["seconds"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     multiclass = timing_multiclass(dev, w, mc, pipe, mc_calls[-1], full_case, lm_case)
     multiclass["seconds"] = time.perf_counter() - t0
     kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage,
-                                                    multiclass)
+                                                    multiclass, multiscale)
     bank = det.device_bank(cid)
     rgb, dep = frame_tensors(frames, depths, dev)
     run = refine_runner(cid, det, refine_stage, dev)
@@ -1009,9 +1300,12 @@ def main() -> int:
     phase_profile("profile_refine", lambda: run(rgb, dep, LOW_THRESHOLD))
     rgb_mc, dep_mc = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
     phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD), n=3)
+    rgb_ms, dep_ms = torch.from_numpy(w_ms["rgb"]).to(dev), torch.from_numpy(w_ms["depth"].astype(np.int32)).to(dev)
+    phase_profile("profile_ms", lambda: ms["card"].match_arrays(rgb_ms, dep_ms, LOW_THRESHOLD), n=3)
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
-                "refine_mc": mc_refine_launches}
+                "refine_mc": mc_refine_launches, "match_ms": ms_launches}
     mc_kernel = multiclass["refine_kernel_K1152"]
+    ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 
     print(json.dumps({"kernels": [{
         "name": "local_refine",
@@ -1028,7 +1322,12 @@ def main() -> int:
         "bound_by": bound["bound_by"],
         "library_ms": lib_ms,
         "at_multiclass_call_K1152": {"ms": mc_kernel["kernel_ms"], "plain_ms": mc_kernel["plain_ms"],
-                                     "bound_ms": mc_kernel["bound"]["bound_ms"], "bound_by": mc_kernel["bound"]["bound_by"]},
+                                     "bound_ms": mc_kernel["bound"]["bound_ms"], "bound_by": mc_kernel["bound"]["bound_by"],
+                                     "library_ms": mc_kernel["library_grouped_conv_ms"]},
+        "at_multiscale_call_K1920_scaled": {"ms": ms_kernel["kernel_ms"], "plain_ms": ms_kernel["plain_ms"],
+                                            "bound_ms": ms_kernel["bound"]["bound_ms"],
+                                            "bound_by": ms_kernel["bound"]["bound_by"],
+                                            "library_ms": ms_kernel["library_grouped_conv_ms"]},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

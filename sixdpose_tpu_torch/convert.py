@@ -13,6 +13,12 @@ superbanks of the multi-class matcher and of the fused multi-class frame
 from the per-class arrays (class-major, padded to common shapes), as the
 JAX package's ``MultiClassMatcher._build`` and ``FusedMultiClassPipeline``
 do.
+
+``multiscale_arrays`` builds the feature arrays of the multi-scale
+matchers (one class or several) from template lists, as the
+JAX package's ``MultiScaleDetector._feature_arrays`` and
+``MultiScaleMultiClass._build`` do (``multiscale_bank_from_arrays`` moves
+them to a device).
 """
 
 from __future__ import annotations
@@ -175,3 +181,85 @@ def multiclass_verify_points(pts: Sequence[np.ndarray], colors: Optional[Sequenc
         if has_colors:
             vc[ci, : len(p)] = colors[ci]
     return _to(vp, np.float32, device), _to(vv, np.bool_, device), _to(vc, np.float32, device) if has_colors else None
+
+
+@dataclasses.dataclass(frozen=True)
+class MultiScaleBank:
+    """The feature arrays of the multi-scale matchers on a device, for one
+    class or for several (class-major, global template ids), per pyramid
+    level (level 0 first).
+
+    feats:   (N, F, 3) int32 (x, y, channel), padded to the largest F.
+    valids:  (N, F) bool.
+    whs:     (N, 2) int32 template (width, height).
+    kdims:   per level the static (kh, kw) that covers every template at the
+      largest scale: ceil((max extent + 1) * max_scale).
+    pad_map: (C, Nmax) int32 global id of each class's local template, -1
+      past the class's count.
+    cls_kb:  (C, 2) int32 each class's own coarse (khb, kwb) shift buckets.
+    pad_kb:  the coarse maps' bottom/right padding in blocks, (khb - min
+      class khb, kwb - min class kwb), so that one sweep covers every class's
+      own anchors.
+    """
+
+    feats: Tuple[torch.Tensor, ...]
+    valids: Tuple[torch.Tensor, ...]
+    whs: Tuple[torch.Tensor, ...]
+    kdims: Tuple[Tuple[int, int], ...]
+    pad_map: torch.Tensor
+    cls_kb: torch.Tensor
+    pad_kb: Tuple[int, int]
+
+
+def multiscale_arrays(per_class: Sequence[Sequence], max_scale: float, t_coarse: int) -> dict:
+    """The numpy arrays of a ``MultiScaleBank`` from each class's templates
+    (per class, per template, per level objects with ``features``,
+    ``width`` and ``height``: a ``TemplateLevel`` of either package)."""
+    counts = [len(tmpls) for tmpls in per_class]
+    flat = [t for tmpls in per_class for t in tmpls]
+    out = {"feats": [], "valids": [], "whs": [], "kdims": []}
+    for l in range(len(flat[0])):
+        fmax = max(len(t[l].features) for t in flat)
+        fa = np.zeros((len(flat), fmax, 3), np.int32)
+        va = np.zeros((len(flat), fmax), bool)
+        wh = np.zeros((len(flat), 2), np.int32)
+        for i, t in enumerate(flat):
+            f = np.asarray(t[l].features)
+            fa[i, : len(f)] = f
+            va[i, : len(f)] = True
+            wh[i] = (t[l].width, t[l].height)
+        out["feats"].append(fa)
+        out["valids"].append(va)
+        out["whs"].append(wh)
+        out["kdims"].append(_scaled_extent(wh, max_scale))
+    pad_map = np.full((len(counts), max(counts)), -1, np.int32)
+    cls_kb = np.zeros((len(counts), 2), np.int32)
+    start = 0
+    for ci, cnt in enumerate(counts):
+        pad_map[ci, :cnt] = np.arange(start, start + cnt)
+        kh, kw = _scaled_extent(out["whs"][-1][start : start + cnt], max_scale)
+        cls_kb[ci] = (-(-kh // t_coarse), -(-kw // t_coarse))
+        start += cnt
+    kh, kw = out["kdims"][-1]
+    out["pad_map"], out["cls_kb"] = pad_map, cls_kb
+    out["pad_kb"] = (int(-(-kh // t_coarse) - cls_kb[:, 0].min()), int(-(-kw // t_coarse) - cls_kb[:, 1].min()))
+    return out
+
+
+def _scaled_extent(wh: np.ndarray, max_scale: float) -> Tuple[int, int]:
+    """(kh, kw) covering templates of (width, height) ``wh`` at ``max_scale``."""
+    return int(np.ceil((wh[:, 1].max() + 1) * max_scale)), int(np.ceil((wh[:, 0].max() + 1) * max_scale))
+
+
+def multiscale_bank_from_arrays(a: dict, device) -> MultiScaleBank:
+    """The ``MultiScaleBank`` of ``multiscale_arrays``' output on ``device``."""
+    return MultiScaleBank(
+        feats=tuple(_to(x, np.int32, device) for x in a["feats"]),
+        valids=tuple(_to(x, np.bool_, device) for x in a["valids"]),
+        whs=tuple(_to(x, np.int32, device) for x in a["whs"]),
+        kdims=tuple(a["kdims"]),
+        pad_map=_to(a["pad_map"], np.int32, device),
+        cls_kb=_to(a["cls_kb"], np.int32, device),
+        pad_kb=a["pad_kb"],
+    )
+

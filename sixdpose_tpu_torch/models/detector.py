@@ -104,6 +104,7 @@ def pyramid_refine(
     x,
     y,
     score,
+    scale=None,
 ):
     """Candidate-local refinement down the pyramid (cpp:1854-1938).
 
@@ -111,6 +112,13 @@ def pyramid_refine(
     response maps are ([B,] C, H_l, W_l).  Returns updated (tid, x, y,
     score).  Dead candidates (score < 0) are passed to the kernel as
     inactive and score zeros there.
+
+    ``scale`` (([B,] K) float32, the multi-scale matchers') scales each
+    candidate's features and extent, as the JAX package's
+    ``_refine_scaled_candidates`` does: the extent is round(wh * scale) (one
+    float32 multiply, rounded half to even), the kernel scales the feature
+    coordinates, and scores are normalized by the kernel's count of
+    in-range features (at least 1) instead of the template's count.
     """
     levels = len(t_at_level)
     tid_l = tid.long()
@@ -119,6 +127,8 @@ def pyramid_refine(
         border = 8 * t
         h_l, w_l = response_pyramid[l].shape[-2:]
         wh_l = whs[l][tid_l]
+        if scale is not None:
+            wh_l = torch.round(wh_l.to(torch.float32) * scale[..., None]).to(torch.int32)
         x = (x * 2 + 1).clamp(min=border)
         y = (y * 2 + 1).clamp(min=border)
         x = torch.minimum(x, w_l - wh_l[..., 0] - border)
@@ -128,11 +138,11 @@ def pyramid_refine(
         og_y = (y // t - 8).clamp(min=0)
         origins = torch.stack([og_y * t, og_x * t], dim=-1).to(torch.int32)
 
-        raw_local, _ = similarity_local_sparse_auto(
+        raw_local, nf_sel = similarity_local_sparse_auto(
             response_pyramid[l], feats[l][tid_l], valids[l][tid_l], origins, t,
-            active=score >= 0,
+            scale=scale, active=score >= 0,
         )
-        local_scores = score_normalize(raw_local, nfeats[l][tid_l])
+        local_scores = score_normalize(raw_local, nfeats[l][tid_l] if scale is None else nf_sel.clamp(min=1))
         flat = local_scores.reshape(*local_scores.shape[:-2], -1)
         best = torch.argmax(flat, dim=-1)  # first max wins, like cpp:1913-1926
         new_score = torch.gather(flat, -1, best[..., None])[..., 0]

@@ -9,7 +9,10 @@ here that sum is
   response maps with one-hot template kernels, for the coarse level;
 - ``similarity_multiscale_matmul``: the same coarse sum, for banks too
   large for the conv, as one matmul per shift bucket of the feature lists
-  (optionally at several feature scales);
+  (optionally at several feature scales: the multi-scale matchers);
+- ``similarity_multiscale_sparse``, ``similarity_dense_pre_s2d`` and
+  ``build_kernels_scaled``: the same multi-scale sum as a row gather and as
+  a conv of scaled one-hot kernels (references, off the main path);
 - ``similarity_local_sparse``: a per-candidate gather-sum over a 16x16
   window of placements, for the pyramid refinement.  On a CUDA tensor it
   runs the hand-written kernel of ``ops/local_refine.py``; this module holds
@@ -54,6 +57,50 @@ def build_template_kernels(
     m = valid & (xs >= 0) & (xs < kw) & (ys >= 0) & (ys < kh)
     np.add.at(kern, (tid[m], cs[m], ys[m], xs[m]), 1)
     return kern
+
+
+def build_kernels_scaled(
+    features: torch.Tensor,
+    valid: torch.Tensor,
+    scale,
+    kh: int,
+    kw: int,
+    num_channels: int,
+) -> torch.Tensor:
+    """One-hot kernels of feature lists scaled by train_depth / scene_depth
+    (the reference's multi-scale design, notes.md:44-58), built on the
+    features' device by one scatter-add.
+
+    Args:
+      features: (N, F, 3) int32 (x, y, channel); valid: (N, F) bool.
+      scale: float, or a float32 tensor that broadcasts against (N, F)
+        (one scale per template: (N, 1)); multiplies feature coordinates
+        (one float32 multiply, rounded half to even).
+      kh, kw: output kernel extent (must cover the largest scale).
+      num_channels: 8 * num_modalities.
+
+    Returns (N, num_channels, kh, kw) float32 kernels; features that round
+    onto one cell each count, as the reference adds one response per
+    feature (cpp:1323-1353).
+    """
+    n, f, _ = features.shape
+    sc = torch.as_tensor(scale, dtype=torch.float32, device=features.device)
+    xs = torch.round(features[..., 0].to(torch.float32) * sc).to(torch.int64)
+    ys = torch.round(features[..., 1].to(torch.float32) * sc).to(torch.int64)
+    cs = features[..., 2].to(torch.int64)
+    ok = valid & (xs >= 0) & (xs < kw) & (ys >= 0) & (ys < kh)
+    tid = torch.arange(n, device=features.device)[:, None]
+    flat = ((tid * num_channels + cs) * kh + ys) * kw + xs
+    kern = torch.zeros(n * num_channels * kh * kw, dtype=torch.float32, device=features.device)
+    # Masked features add 0 at index 0.
+    kern.scatter_add_(0, torch.where(ok, flat, 0).reshape(-1), ok.to(torch.float32).reshape(-1))
+    return kern.reshape(n, num_channels, kh, kw)
+
+
+def count_kernel_features(kernels: torch.Tensor) -> torch.Tensor:
+    """Effective feature count per template ((N, C, KH, KW) -> (N,) int32);
+    scaling can merge features onto one cell, and out-of-extent ones drop."""
+    return kernels.sum(dim=(1, 2, 3)).to(torch.int32)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -128,6 +175,15 @@ def similarity_dense(response_maps: torch.Tensor, kernels: torch.Tensor, t: int)
     rhs = _s2d_kernels(kernels, t).to(torch.float32)
     out = torch.round(F.conv2d(lhs, rhs))
     return out[0] if single else out
+
+
+def similarity_dense_pre_s2d(response_maps: torch.Tensor, kernels_s2d: torch.Tensor, t: int) -> torch.Tensor:
+    """``similarity_dense`` for kernels already in the space-to-depth layout
+    ((N, C*t*t, KH/t, KW/t), ``s2d_kernels_host`` or ``_s2d_kernels``), as a
+    float32 conv, exact for the reasons ``similarity_dense`` gives (the JAX
+    package runs it as an int8 conv with int32 sums: the same integers)."""
+    lhs = _s2d_maps(response_maps, t)[None].to(torch.float32)
+    return torch.round(F.conv2d(lhs, kernels_s2d.to(torch.float32)))[0]
 
 
 # Bytes of one row chunk of the float32 shift-bucketed weights W.  An 80 GB
@@ -267,6 +323,52 @@ def similarity_multiscale_matmul(
     raw = torch.cat(parts) if len(parts) > 1 else parts[0]
     raw = raw.reshape(sn, maps.shape[0], ho, wo).transpose(0, 1).contiguous()
     return (raw[0] if single else raw), nfeat
+
+
+def _im2col_s2d(response_maps: torch.Tensor, t: int, khb: int, kwb: int):
+    """Unfold the space-to-depth maps into im2col rows: (P (khb*kwb*C*t*t,
+    Ho*Wo), Ho, Wo), row (dy*kwb + dx)*C*t*t + c' holding
+    maps_s2d[c', dy:dy+Ho, dx:dx+Wo] flattened (bucket-major, as in the JAX
+    package)."""
+    maps = _s2d_maps(response_maps, t)  # (C*t*t, Hb, Wb)
+    ct2, hb, wb = maps.shape
+    ho, wo = hb - khb + 1, wb - kwb + 1
+    blocks = torch.stack([maps[:, dy : dy + ho, dx : dx + wo] for dy in range(khb) for dx in range(kwb)])
+    return blocks.reshape(khb * kwb * ct2, ho * wo), ho, wo
+
+
+def similarity_multiscale_sparse(
+    response_maps: torch.Tensor,
+    feats: torch.Tensor,
+    valid: torch.Tensor,
+    scales: torch.Tensor,
+    t: int,
+    kh: int,
+    kw: int,
+):
+    """Coarse multi-scale scoring as a feature-sparse row gather:
+    ``similarity_multiscale_matmul``'s contract and integers.
+
+    The s2d maps are unfolded once (``_im2col_s2d``); every (scale,
+    template, feature) then gathers the one row of its (bucket, channel),
+    and the rows sum over features in int32.  Work scales with the feature
+    count, like the reference's linearized memories (cpp:1215-1243).  Rows
+    are gathered a chunk at a time, so the gathered bytes stay within
+    ``_W_CHUNK_BYTES``.  (The JAX package packs four byte lanes into 32-bit
+    words here, a TPU gather workaround the port does not need.)
+
+    Returns (raw (S * N, Ho, Wo) float32, nfeat (S * N,) int32).
+    """
+    khb, kwb = -(-kh // t), -(-kw // t)
+    p, ho, wo = _im2col_s2d(response_maps, t, khb, kwb)
+    p = F.pad(p, (0, 0, 0, 1))  # a zero row for masked features
+    ct2 = response_maps.shape[0] * t * t
+    bucket, cprime, ok = bucket_table(feats, valid, scales, t, kh, kw)
+    idx = torch.where(ok, bucket * ct2 + cprime, p.shape[0] - 1).to(torch.int64)
+    sn, f = idx.shape
+    chunk = max(1, min(sn, _W_CHUNK_BYTES // max(f * p.shape[1] * 5, 1)))
+    raw = torch.cat([p[idx[i : i + chunk]].sum(dim=1, dtype=torch.int32) for i in range(0, sn, chunk)])
+    return raw.reshape(sn, ho, wo).to(torch.float32), ok.sum(-1).to(torch.int32)
 
 
 def _local_conv_operands(response_maps, kernels_sel, origins, t: int, window: int):

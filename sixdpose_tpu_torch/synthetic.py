@@ -15,6 +15,13 @@
   benchmark (``SYNTH_r05.json``, ``benchmark.py:run_benchmark``): 9 classes
   of 810 views in one bank, a 320x240 RGB-D frame and its settings.  The
   bank is drawn, not rendered (rendering is not ported yet).
+- ``multiscale_workload``: the shape of the JAX package's multi-scale sweep
+  (``tools/bench_multiscale_multiclass.py``): 15 classes of 337 templates,
+  a VGA RGB-D frame of noisy depth planes and its settings.  The bank is
+  drawn (the case1 bank that tool clones is not in the repository).
+- ``planted_scene_scaled``: the planted scene with object 0 resized to a
+  given scale and set at a given depth, for the multi-scale golden
+  (``tools/torch_port_ms_golden.py``).
 """
 
 from __future__ import annotations
@@ -258,3 +265,97 @@ def multiclass_pipeline_args(workload: dict) -> dict:
     names = ("icp", "max_refine", "num_points", "verify_pts", "verify_colors", "verify_tau", "verify_color_weight",
              "icp_seeds", "seed_flip")
     return {n: workload[n] for n in names}
+
+
+# The multi-scale sweep of tools/bench_multiscale_multiclass.py: the case1
+# bank's settings (DetectorConfig(t_at_level=(5, 8), top_k=128), 63 colour
+# and 63 depth features at level 0, 31 + 31 at level 1), 15 classes of 337
+# templates trained at 600 mm, 5 proposals, threshold 70.
+MS_CFG = DetectorConfig(t_at_level=(5, 8), top_k=128)
+MS_CLASSES = 15
+MS_VIEWS = 337
+MS_TRAIN_DEPTH = 600.0
+# The frame's depth planes: (first row, depth mm), each a bin centre of the
+# default histogram (100 mm bins from 400 mm), 3 or more bins apart so each
+# is its own peak; 4 planes give 4 proposals of 5 and one empty.
+MS_PLANES = ((0, 650), (160, 950), (290, 1250), (400, 1650))
+
+
+def multiscale_workload(classes: int = MS_CLASSES, views: int = MS_VIEWS, seed: int = 0) -> dict:
+    """A multi-scale workload of the JAX sweep's shape, drawn from ``seed``.
+
+    Per class c: ``views`` templates whose level-0 (width, height) are
+    drawn in [24, 2 * L_c] px with template 0 at (2 L_c, 2 L_c), where
+    L_c = 32 + c * 14 // (classes - 1) spreads the classes' largest level-1
+    extents over 32-46 px (46 px is the LINEMOD-scale extent; different
+    extents give the coarse maps a non-zero padding); 63 colour features (channels 0-7) and
+    63 depth features (channels 8-15) at level 0 and 31 + 31 at level 1,
+    as ``MS_CFG`` extracts them.  The frame is VGA RGB noise over four
+    noisy depth planes (``MS_PLANES``, noise sd 15 mm).
+
+    Returns a dict: ``class_ids``, ``templates`` (per class, per template,
+    per level), ``rgb`` (480, 640, 3) uint8, ``depth`` (480, 640) uint16,
+    ``cfg``, ``train_depth``, ``num_scales`` (5), ``threshold`` (70).
+    """
+    rng = np.random.default_rng(seed)
+    out = {"class_ids": [f"obj_{c:02d}" for c in range(classes)], "templates": []}
+    for c in range(classes):
+        largest = 32 + c * 14 // max(classes - 1, 1)
+        whs = rng.integers(24, 2 * largest + 1, (views, 2))
+        whs[0] = 2 * largest
+        levels = []
+        for l, n_f in enumerate((63, 31)):
+            wl, hl = whs[:, 0] >> l, whs[:, 1] >> l
+            xs = (rng.random((views, 2 * n_f)) * (wl[:, None] + 1)).astype(np.int64)
+            ys = (rng.random((views, 2 * n_f)) * (hl[:, None] + 1)).astype(np.int64)
+            ch = np.concatenate([rng.integers(0, 8, (views, n_f)), rng.integers(8, 16, (views, n_f))], 1)
+            levels.append((np.stack([xs, ys, ch], -1), wl, hl))
+        out["templates"].append([
+            [TemplateLevel(features=f[i], width=int(wl[i]), height=int(hl[i]), pyramid_level=l)
+             for l, (f, wl, hl) in enumerate(levels)]
+            for i in range(views)
+        ])
+    out["rgb"] = rng.integers(0, 255, VGA + (3,), np.uint8)
+    depth = np.zeros(VGA, np.float64)
+    for row, mm in MS_PLANES:
+        depth[row:] = mm
+    out["depth"] = np.round(depth + 15.0 * rng.standard_normal(VGA)).astype(np.uint16)
+    out.update(cfg=MS_CFG, train_depth=MS_TRAIN_DEPTH, num_scales=5, threshold=70.0)
+    return out
+
+
+def multiscale_detector(workload: dict, device) -> Detector:
+    """A ``Detector`` on ``device`` holding every class of a
+    ``multiscale_workload``."""
+    det = Detector(workload["cfg"], device=device)
+    for cid, templates in zip(workload["class_ids"], workload["templates"]):
+        for levels in templates:
+            det.bank.add_template_levels(cid, levels)
+    return det
+
+
+def _resize_nearest(a: np.ndarray, scale: float) -> np.ndarray:
+    """Nearest-neighbour resize of the first two axes by ``scale``: output
+    pixel i samples input pixel floor((i + 0.5) / scale)."""
+    h, w = a.shape[:2]
+    ys = np.minimum(((np.arange(int(round(h * scale))) + 0.5) / scale).astype(np.int64), h - 1)
+    xs = np.minimum(((np.arange(int(round(w * scale))) + 0.5) / scale).astype(np.int64), w - 1)
+    return a[ys][:, xs]
+
+
+def planted_scene_scaled(x: int, y: int, scale: float, depth_mm: int, seed: int = 11, far_rows: int = 100,
+                         far_mm: int = 750):
+    """(rgb, depth uint16) of the cluttered VGA scene of ``planted_scene``
+    with object 0 resized by ``scale`` (nearest neighbour) pasted at
+    top-left (x, y) with its base at ``depth_mm``, on a noisy plane at
+    ``depth_mm``; the first ``far_rows`` rows are a second plane at
+    ``far_mm``, so the histogram proposes two depths."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(30, 70, VGA + (3,), np.uint8)
+    depth = (depth_mm + rng.integers(-2, 3, VGA)).astype(np.uint16)
+    depth[:far_rows] = (far_mm + rng.integers(-2, 3, (far_rows, VGA[1]))).astype(np.uint16)
+    obj, height, m = (_resize_nearest(a, scale) for a in planted_object(0))
+    s_h, s_w = m.shape
+    rgb[y : y + s_h, x : x + s_w][m] = obj[m]
+    depth[y : y + s_h, x : x + s_w][m] = (depth_mm - height[m]).astype(np.uint16)
+    return rgb, depth

@@ -4,8 +4,9 @@ The local-refine kernel against its plain version on the card, the
 wrapper's input checks, the detector on the card against its CPU run, the
 scene maps, batched ICP, verification and the fused detect+refine frame on
 the card against their CPU runs, and the multi-class path (the matmul
-coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``) on
-the card against its CPU run.
+coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``) and
+the multi-scale matchers (``MultiScaleMultiClass``, ``MultiScaleDetector``)
+on the card against their CPU runs.
 They import neither JAX nor the JAX package, so a GPU machine without JAX
 runs them apart from the suite's conftest (which imports JAX):
 
@@ -364,3 +365,41 @@ def test_fused_multiclass_on_card_equals_cpu_and_waits_for_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert torch.equal(out[4].cpu(), g[4].cpu())
+
+
+# -- multi-scale matching (models/multiscale.py) ------------------------------
+#
+# Exact: every score is a sum of small integers in float32.
+
+
+def test_multiscale_on_card_equals_cpu_and_waits_for_nothing(cuda):
+    """A cut multi-scale workload (3 classes x 24 templates, VGA, 5
+    proposals): MultiScaleMultiClass and MultiScaleDetector on the card
+    equal their CPU runs everywhere at 70 and 30, one scaled refine launch
+    per frame, and a frame runs with every synchronizing call raising."""
+    from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
+
+    w = synthetic.multiscale_workload(classes=3, views=24)
+    det = synthetic.multiscale_detector(w, cuda)
+    kw = dict(num_scales=w["num_scales"])
+    gpu = MultiScaleMultiClass(det, w["train_depth"], device=cuda, **kw)
+    cpu = MultiScaleMultiClass(det, w["train_depth"], device="cpu", **kw)
+    one = MultiScaleDetector(det, w["train_depth"], device=cuda, **kw)
+    one_cpu = MultiScaleDetector(det, w["train_depth"], device="cpu", **kw)
+    before = LR.similarity_local_sparse_cuda.launches
+    for thr in (70.0, 30.0):
+        g = gpu.match_arrays(w["rgb"], w["depth"], thr)
+        assert _same(g, cpu.match_arrays(w["rgb"], w["depth"], thr))
+        assert _same(one.match_arrays(w["rgb"], w["depth"], thr, "obj_01"),
+                     one_cpu.match_arrays(w["rgb"], w["depth"], thr, "obj_01"))
+    assert bool((g[3] >= 0).all())  # every class fills its 128 slots at 30
+    assert LR.similarity_local_sparse_cuda.launches == before + 4
+    rgb, dep = torch.from_numpy(w["rgb"]).to(cuda), torch.from_numpy(w["depth"].astype(np.int32)).to(cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = gpu.match_arrays(rgb, dep, 30.0)
+        single = one.match_arrays(rgb, dep, 30.0, "obj_01")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert _same(out, g) and bool((single[3] >= 0).any())

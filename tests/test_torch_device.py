@@ -1,7 +1,7 @@
 """The port's entry points run on the card unless the caller asks for the CPU.
 
-``Detector``, ``MultiClassMatcher``, the fused pipelines,
-``extract_template`` and ``TemplateBank.add_template`` resolve
+``Detector``, ``MultiClassMatcher``, the fused pipelines, the multi-scale
+matchers, ``extract_template`` and ``TemplateBank.add_template`` resolve
 their device the same way (``sixdpose_tpu_torch.device.resolve_device``):
 without CUDA their defaults raise one and the same RuntimeError.  CUDA is
 hidden with monkeypatch, so the test runs the same on every machine.
@@ -129,3 +129,33 @@ def test_multiclass_entry_points_default_to_the_card(monkeypatch):
     assert out[0].device.type == "cpu" and out[0].shape == (2, CFG.top_k)
     fused = TP.FusedMultiClassPipeline(det, K, max_refine=2, verify_pts=vpts, device="cpu")(rgb, depth, 50.0)
     assert fused[4].device.type == "cpu" and fused[4].shape == (2, 2, 3, 3)
+
+
+def test_multiscale_entry_points_default_to_the_card(monkeypatch):
+    """MultiScaleDetector and MultiScaleMultiClass raise the same
+    RuntimeError as the other entry points without CUDA unless the CPU is
+    asked for, and then run there."""
+    from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
+
+    rgb, mask = _view()
+    depth = np.where(mask > 0, 800, 1000).astype(np.uint16)
+    det = Detector(CFG, device="cpu")
+    for cid in ("a", "b"):
+        assert det.bank.add_template(cid, rgb, None, mask, device="cpu") == 0
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "Detector": lambda **kw: Detector(CFG, **kw),
+        "MultiScaleDetector": lambda **kw: MultiScaleDetector(det, 450.0, num_scales=2, **kw),
+        "MultiScaleMultiClass": lambda **kw: MultiScaleMultiClass(det, 450.0, num_scales=2, **kw),
+    }
+    messages = {}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA") as err:
+            call()
+        messages[name] = str(err.value)
+        assert call(device="cpu").device.type == "cpu"
+    assert len(set(messages.values())) == 1, messages
+    out = MultiScaleDetector(det, 450.0, num_scales=2, device="cpu").match_arrays(rgb, depth, 50.0, "a")
+    assert out[0].device.type == "cpu" and out[0].shape == (CFG.top_k,)
+    out = MultiScaleMultiClass(det, 450.0, num_scales=2, device="cpu").match_arrays(rgb, depth, 50.0)
+    assert out[6].device.type == "cpu" and out[6].shape == (2, CFG.top_k)

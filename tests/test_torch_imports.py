@@ -54,7 +54,8 @@ def test_port_imports_without_jax():
     )
     assert out.returncode == 0, out.stderr
     assert "chip_smoke" in out.stdout
-    for name in ("models.multiclass", "models.pipeline", "ops.similarity", "convert", "synthetic"):
+    for name in ("models.multiclass", "models.multiscale", "models.pipeline", "ops.scale_proposal", "ops.similarity",
+                 "convert", "synthetic"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 
