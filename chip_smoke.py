@@ -24,7 +24,14 @@ Drives the port's main paths, and checks every result:
   one bank, VGA RGB-D, ``t_at_level=(5, 8)``, top_k 128, 5 depth proposals,
   train depth 600 mm, drawn by ``synthetic.multiscale_workload``):
   multi-scale matching of every class in one pass (``MultiScaleMultiClass``)
-  and of one class at a time (``MultiScaleDetector``).
+  and of one class at a time (``MultiScaleDetector``);
+- at the full width of the JAX package's synthetic accuracy benchmark
+  (``SYNTH_r05.json``: the nine procedural meshes, 80-view spheres, 320 x
+  240, top_k 128, 96 hypotheses per class, 4 seeds with the flip,
+  verify_tau 6, 20 scenes): rendering, render-trained banks
+  (``render_train_templates`` through ``benchmark.train_benchmark_bank``),
+  and ``run_benchmark`` serving every scene through
+  ``PoseEstimationService`` and scoring it with ADI and VSD.
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -73,7 +80,26 @@ non-zero:
    goldens of the planted scenes, each planted object's top pose moving it
    by its planted shift; both multi-scale matchers against the JAX golden
    of the rescaled planted object, found at its planted scale and place;
-12. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+12. render: the nine meshes at 320 x 240, a batch of 16 poses each through
+   ``render_depth_batch`` and the training renderer, and ``render`` in all
+   three modes, the card against the port's CPU run (bitwise), the JAX
+   golden's renders of ``tools/torch_port_synth_golden.py`` on the card
+   (bitwise), a batch under ``set_sync_debug_mode("error")``, ms per batch;
+13. train_synth: the full-width bank trained on the card (templates per
+   class, training seconds), and the textured box at 60 views trained on
+   the card and on the CPU: equal templates and infos;
+14. synth_golden: ``run_benchmark`` and the service on the card at the
+   golden's cut size over its JAX-trained bank: JAX's targets, hits, VSD
+   hits and per-object recall, and the service's estimates (fused, host and
+   multi-scale paths) within ``FUSED_TOL`` of JAX's, launch counts set to 0
+   just before and read just after;
+15. synth: ``run_benchmark`` at the ``SYNTH_r05.json`` settings over the
+   full-width bank, launch counts set to 0 just before and read just after;
+   one line ``{"synth": {...}}`` with the recall, the VSD recall, targets,
+   hits, per-object recall, training seconds and per-frame times beside the
+   record, gated at 77 +- 2 targets and each recall no lower than the
+   record's minus 0.10;
+16. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -91,14 +117,19 @@ non-zero:
    whole and by stage (pyramid, proposals, coarse sweep, selection, refine,
    sort and NMS), the coarse sweep beside its bound, one ``torch.matmul`` of the same product and the
    dense conv of scaled kernels, and the kernel at the K=1920 scaled call
-   beside its bound, its plain version and one grouped conv;
-13. profile, profile_refine, profile_mc, profile_ms: torch.profiler's split
-   of a B=1 match frame, of a B=1 detect+refine frame, of a fused
-   multi-class frame and of a one-pass multi-scale frame into device
-   kernels and host ops, and the device's idle share;
-14. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+   beside its bound, its plain version and one grouped conv.
+   Under ``synth``: the service's stage times per served frame, device ms
+   per fused frame, render ms per 16-view batch and training seconds per
+   class;
+17. profile, profile_refine, profile_mc, profile_ms, profile_synth:
+   torch.profiler's split of a B=1 match frame, of a B=1 detect+refine frame, of a fused
+   multi-class frame, of a one-pass multi-scale frame and of one frame
+   served by ``PoseEstimationService`` on a rendered benchmark scene into
+   device kernels and host ops, and the device's idle share;
+18. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
    source, the TPU kernels it replaces, its launches in the main paths'
-   phases (in all and per phase), its error against the plain version, and
+   phases (in all and per phase, ``synth_golden`` and ``synth`` among
+   them), its error against the plain version, and
    its time beside the plain version's, the library call's and the bound
    (at the bench B=1 call, the multi-class call and the multi-scale call);
    then the ``nvidia-smi`` line again.
@@ -111,21 +142,27 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 
 import numpy as np
 import torch
 
+from sixdpose_tpu_torch import benchmark as TB
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
 from sixdpose_tpu_torch.convert import refine_bank_from_numpy
+from sixdpose_tpu_torch.geometry import render as GR
+from sixdpose_tpu_torch.geometry.transform import random_rotation
 from sixdpose_tpu_torch.models import detector as D
 from sixdpose_tpu_torch.models import multiscale as M
 from sixdpose_tpu_torch.models import pipeline as P
+from sixdpose_tpu_torch.models import train as TT
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
@@ -149,6 +186,7 @@ from sixdpose_tpu_torch.ops.similarity import (
     similarity_local_sparse,
     similarity_multiscale_matmul,
 )
+from sixdpose_tpu_torch.serving import PoseEstimationService
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "sixdpose_tpu_torch", "testdata")
@@ -1156,7 +1194,7 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     return out
 
 
-def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, multiclass, multiscale):
+def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, multiclass, multiscale, synth):
     t0 = time.perf_counter()
     bank = det.device_bank(cid)
     rgb1 = torch.from_numpy(frames[0]).to(dev)
@@ -1198,6 +1236,7 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
         refine=refine,
         multiclass=multiclass,
         multiscale=multiscale,
+        synth=synth,
         method=("CUDA events, medians; detect_frame_core and detect_refine_core: whole eager calls (20, or 10 "
                 "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
@@ -1205,7 +1244,10 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
                 "fused frame and its stage split 5 whole eager calls, matmul scorer, dense conv and one matmul 10 "
                 "eager calls, grouped conv at K=1152 1 call replayed from one CUDA graph; multiscale: frames and their "
                 "stage split 5 whole eager calls, coarse sweep and one matmul 5 eager calls, dense conv 3, kernel as "
-                "refine, grouped conv 1 call replayed from one CUDA graph"),
+                "refine, grouped conv 1 call replayed from one CUDA graph; synth: the service's host stage means over "
+                "the 20 served frames (ServiceMetrics), device ms per fused frame the median of 10 CUDA-event "
+                "windows (benchmark.fused_device_ms_per_frame), render the median of 10 eager 16-view batches, "
+                "training wall seconds per class"),
     )
     b1 = refine["B1_level0"]
     return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
@@ -1248,6 +1290,279 @@ def phase_profile(name: str, frame, n: int = 5):
     )
 
 
+# -- render-trained banks, serving and the synthetic accuracy benchmark ------
+
+SYNTH_IM = (320, 240)
+SYNTH_RADIUS = 450.0  # the benchmark's training radius (benchmark.train_benchmark_bank)
+# The JAX package's accuracy record (SYNTH_r05.json) and run_benchmark at its
+# settings: 20 scenes, seed 0, 4 objects per scene, threshold 55, top_k 128,
+# 96 hypotheses per class, 4 seeds with the flip, verify_tau 6.
+SYNTH_RECORD = {"recall": 0.7532467532467533, "recall_vsd": 0.7792207792207793, "targets": 77}
+SYNTH_SETTINGS = dict(num_scenes=20, min_n_views=80, im_size=SYNTH_IM, threshold=55.0, seed=0,
+                      max_objects_per_scene=4, max_hyps=96, icp_seeds=4, seed_flip=True, verify_tau=6.0, top_k=128)
+SYNTH_RECALL_FLOOR = 0.10  # below the record by more than this, the path is broken
+CUT_VIEWS = 12  # the smallest view sphere (12 points x 5 tilts): the CPU side of train_synth
+
+
+def render_cases(models, K, seed: int = 0, n: int = 16):
+    """Per mesh, the training mesh at the benchmark radius and ``n`` poses
+    drawn from ``seed`` (random rotations, the scenes' depth range)."""
+    rng = np.random.default_rng(seed)
+    cases = {}
+    for cid, m in models.items():
+        Rs = np.stack([random_rotation(rng) for _ in range(n)]).astype(np.float32)
+        ts = np.stack([[rng.uniform(-40, 40), rng.uniform(-30, 30), rng.uniform(380, 520)] for _ in range(n)])
+        cases[cid] = (TT.training_mesh(m, K, SYNTH_RADIUS), Rs, ts.astype(np.float32))
+    return cases
+
+
+def batch_renderer(model, mesh, K, device):
+    """The training renderer of one mesh on ``device``: ``(Rs, ts) ->
+    (rgb, depth)`` (texture-mapped for a textured model), as
+    ``render_train_templates`` builds it."""
+    pts, faces, colors, uv = mesh
+    up = lambda a, dtype=np.float32: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(device)  # noqa: E731
+    args = (up(pts), up(faces, np.int64))
+    Kt = up(K)
+    if uv is not None:
+        uv_t, tex = up(uv), up(np.asarray(model["texture"], np.float32) / 255.0)
+        return lambda Rs, ts: GR.render_textured(*args, uv_t, tex, Kt, Rs, ts, SYNTH_IM)
+    col = up(colors / 255.0)
+    return lambda Rs, ts: GR.render_rgb_depth(*args, col, Kt, Rs, ts, SYNTH_IM)
+
+
+def phase_render(dev):
+    """The nine benchmark meshes at 320 x 240: a batch of 16 poses each
+    through ``render_depth_batch`` and the training renderer, and ``render``
+    in all three modes, on the card against the port's CPU run (bitwise);
+    the JAX golden's renders at 96 x 72 on the card (bitwise); one batch
+    with every synchronizing call raising; ms per 16-view batch."""
+    t0 = time.perf_counter()
+    models = TB.make_models()
+    K = TB.benchmark_K(SYNTH_IM)
+    cases = render_cases(models, K)
+    equal, hits = {}, {}
+
+    def run(cid, mesh, Rs, ts, device):
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(device)  # noqa: E731
+        pts, faces, Kt, Rt, tt = up(mesh[0].astype(np.float32)), up(mesh[1]), up(K.astype(np.float32)), up(Rs), up(ts)
+        res = [GR.render_depth_batch(pts, faces, Kt, Rt, tt, SYNTH_IM), *batch_renderer(models[cid], mesh, K, device)(Rt, tt)]
+        for mode in ("depth", "rgb+depth", "rgb"):
+            r = GR.render(dict(models[cid]), SYNTH_IM, K, Rs[0].astype(np.float64), ts[0].astype(np.float64), mode=mode,
+                          texture=models[cid].get("texture"), device=device)
+            res += list(r) if isinstance(r, tuple) else [r]
+        return [a.cpu() for a in res]
+
+    for cid, (mesh, Rs, ts) in cases.items():
+        out = {"card": run(cid, mesh, Rs, ts, dev), "cpu": run(cid, mesh, Rs, ts, "cpu")}
+        equal[cid] = all(torch.equal(a, b) for a, b in zip(out["card"], out["cpu"]))
+        hits[cid] = int((out["card"][0] > 0).sum())
+        check(equal[cid], f"the render of {cid} on the card differs from the CPU")
+        check(hits[cid] > 0, f"{cid} rendered nothing")
+    g = np.load(os.path.join(TESTDATA, "synth_golden.npz"))
+    jax_equal = []
+    for i, (cid, m) in enumerate((c, m) for c, m in models.items() for _ in range(2)):
+        Kj, size = g["render_K"], tuple(int(v) for v in g["render_size"])
+        rgb, depth = GR.render(dict(m), size, Kj, g["render_R"][i], g["render_t"][i], mode="rgb+depth", device=dev)
+        tex = GR.render(dict(m), size, Kj, g["render_R"][i], g["render_t"][i], mode="rgb", texture=m.get("texture"),
+                        device=dev)
+        jax_equal.append(np.array_equal(depth.cpu().numpy(), g["render_depth"][i])
+                         and np.array_equal(rgb.cpu().numpy(), g["render_rgb"][i])
+                         and np.array_equal(tex.cpu().numpy(), g["render_tex_rgb"][i]))
+    check(all(jax_equal), f"renders on the card differ from the JAX golden: {jax_equal}")
+
+    batch_ms = {}
+    for cid in ("box", "texbox"):
+        mesh, Rs, ts = cases[cid]
+        fn = batch_renderer(models[cid], mesh, K, dev)
+        Rt, tt = torch.from_numpy(Rs).to(dev), torch.from_numpy(ts).to(dev)
+        fn(Rt, tt)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn(Rt, tt)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        batch_ms[cid] = {"faces": int(mesh[1].shape[0]), "ms_per_16_views": cuda_ms(lambda: fn(Rt, tt), reps=10)}
+    emit("render", t0, card_equals_cpu_bitwise=equal, depth_hits_pose0=hits, card_equals_jax_golden=jax_equal,
+         sync_free_batch=True, batch_ms=batch_ms, im_size=list(SYNTH_IM))
+    return batch_ms
+
+
+def phase_train_synth(dev, bank_path: str):
+    """The full-width bank of the synthetic benchmark (9 classes,
+    ``min_n_views`` 80, 320 x 240, top_k 128) trained on the card by
+    ``train_benchmark_bank`` into ``bank_path``; and the textured box at
+    ``CUT_VIEWS`` views trained on the card and on the CPU: the same
+    templates and infos."""
+    t0 = time.perf_counter()
+    models = TB.make_models()
+    K = TB.benchmark_K(SYNTH_IM)
+    cfg = TB.benchmark_config(SYNTH_SETTINGS["top_k"])
+    seconds = {}
+    original = TB.render_train_templates
+
+    def timed(det, cid, *args, **kwargs):
+        t = time.perf_counter()
+        stats = original(det, cid, *args, **kwargs)
+        seconds[cid] = time.perf_counter() - t
+        return stats
+
+    TB.render_train_templates = timed
+    try:
+        det, train_s = TB.train_benchmark_bank(models, K, SYNTH_IM, SYNTH_SETTINGS["min_n_views"], cfg,
+                                               bank_path, verbose=False, device=dev)
+    finally:
+        TB.render_train_templates = original
+    per_class = {cid: det.num_templates(cid) for cid in models}
+    check(min(per_class.values()) > 0 and train_s > 0, f"training failed: {per_class}")
+
+    cut = dict(radii=[SYNTH_RADIUS], min_n_views=CUT_VIEWS, im_size=SYNTH_IM, elev_range=(-0.5 * np.pi, 0.5 * np.pi),
+               tilt_range=(-0.5 * np.pi, 0.5 * np.pi), tilt_step=0.2 * np.pi)
+    banks = {}
+    for device in (dev, "cpu"):
+        d = Detector(cfg, device=device)
+        banks[str(device)] = (TT.render_train_templates(d, "texbox", models["texbox"], K, device=device, **cut), d)
+    (s_card, d_card), (s_cpu, d_cpu) = banks[str(dev)], banks["cpu"]
+    same = s_card == s_cpu and all(
+        all(np.array_equal(la.features, lb.features) and (la.width, la.height) == (lb.width, lb.height)
+            for la, lb in zip(a, b))
+        for a, b in zip(d_card.bank.templates["texbox"], d_cpu.bank.templates["texbox"])
+    ) and all(
+        ia.keys() == ib.keys() and all(np.asarray(ia[k]).dtype == np.asarray(ib[k]).dtype
+                                       and np.array_equal(ia[k], ib[k]) for k in ia)
+        for ia, ib in zip(d_card.bank.infos["texbox"], d_cpu.bank.infos["texbox"])
+    )
+    check(same and s_card["added"] > 0, f"the textured box trained on the card differs from the CPU: {s_card} {s_cpu}")
+    emit("train_synth", t0, templates_per_class=per_class, templates=det.num_templates(), train_time_s=train_s,
+         train_seconds_per_class=seconds, cut_texbox={"views": sum(s_card.values()), "stats": s_card,
+                                                      "card_equals_cpu": True})
+    return train_s, seconds
+
+
+@contextmanager
+def recording_services(services: list):
+    """Keep every ``PoseEstimationService`` that ``run_benchmark`` builds."""
+    original = TB.PoseEstimationService
+
+    class Recording(original):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            services.append(self)
+
+    TB.PoseEstimationService = Recording
+    try:
+        yield
+    finally:
+        TB.PoseEstimationService = original
+
+
+def estimates_diff(ests, g, prefix: str, i: int) -> dict:
+    """Published estimates against the golden's (``prefix`` arrays, row
+    ``i``): count, class, template, x, y and similarity equal; the largest
+    errors of R, t (mm), fitness and verify; within ``FUSED_TOL`` (fitness
+    and verify within 0.01, two points of the smallest cloud)."""
+    n = int(g[f"{prefix}_n"][i])
+    ints = len(ests) == n and all(
+        e.class_id == str(g[f"{prefix}_class"][i, j])
+        and all(getattr(e, f) == g[f"{prefix}_{f}"][i, j] for f in ("template_id", "x", "y", "similarity"))
+        for j, e in enumerate(ests))
+    rows = range(min(len(ests), n))
+    err = {
+        "R": max((float(np.abs(ests[j].R - g[f"{prefix}_R"][i, j]).max()) for j in rows), default=0.0),
+        "t_mm": max((float(np.abs(ests[j].t.ravel() - g[f"{prefix}_t"][i, j]).max()) for j in rows), default=0.0),
+        "fitness": max((abs(ests[j].fitness - g[f"{prefix}_fitness"][i, j]) for j in rows), default=0.0),
+        "verify": max((abs(ests[j].verify - g[f"{prefix}_verify"][i, j]) for j in rows), default=0.0),
+    }
+    within = ints and err["R"] <= FUSED_TOL["R"] and err["t_mm"] <= FUSED_TOL["t_mm"] and max(
+        err["fitness"], err["verify"]) <= 0.01
+    return {"ints_equal": bool(ints), "max_err": err, "within_tol": bool(within), "estimates": len(ests)}
+
+
+def phase_synth_golden(dev):
+    """``run_benchmark`` and ``PoseEstimationService`` on the card at the
+    cut size of the golden of ``tools/torch_port_synth_golden.py``, over its
+    JAX-trained bank: JAX's targets, hits, VSD hits and per-object recall;
+    the service's estimates within ``FUSED_TOL`` of JAX's on the fused path
+    (every scene), the host path and the multi-scale path."""
+    t0 = time.perf_counter()
+    g = np.load(os.path.join(TESTDATA, "synth_golden.npz"))
+    settings, want = json.loads(str(g["settings"])), json.loads(str(g["result"]))
+    with tempfile.TemporaryDirectory() as tmp:
+        cache = os.path.join(tmp, "bank.npz")
+        shutil.copy(os.path.join(TESTDATA, "synth_bank.npz"), cache)
+        shutil.copy(os.path.join(TESTDATA, "synth_bank.npz.meta.json"), cache + ".meta.json")
+        LR.similarity_local_sparse_cuda.launches = 0
+        got = TB.run_benchmark(bank_cache=cache, verbose=False, device=dev, **settings)
+        torch.cuda.synchronize()
+        launches = LR.similarity_local_sparse_cuda.launches
+    for key in ("targets", "hits", "hits_vsd", "per_object"):
+        check(got[key] == want[key], f"run_benchmark on the card: {key} {got[key]}, JAX {want[key]}")
+    # One refine launch per served frame (t_at_level (4, 8)): the scenes and
+    # fused_device_ms_per_frame's warm-up and timed frames.
+    check(launches == settings["num_scenes"] + 11, f"{launches} refine launches for {settings['num_scenes']} scenes")
+
+    svc_cfg = json.loads(str(g["service"]))
+    det = Detector.read_classes(os.path.join(TESTDATA, "synth_bank.npz"), TB.benchmark_config(settings["top_k"]),
+                                device=dev)
+    models = {c: TB.make_models()[c] for c in settings["object_ids"]}
+
+    def service(**kw):
+        return PoseEstimationService(
+            det, models, TB.benchmark_K(tuple(settings["im_size"])), threshold=svc_cfg["threshold"],
+            max_refine=svc_cfg["max_refine"], icp=IcpConfig(max_iters=svc_cfg["icp_max_iters"]),
+            min_fitness=svc_cfg["min_fitness"], icp_seeds=svc_cfg["icp_seeds"], verify_tau=svc_cfg["verify_tau"],
+            seed_flip=svc_cfg["seed_flip"], device=dev, **kw)
+
+    fused = service()
+    diffs = {f"fused_scene{i}": estimates_diff(fused.process_frame(g["rgb"][i], g["depth"][i]), g, "est", i)
+             for i in range(settings["num_scenes"])}
+    host = service(prefer_fused=False)
+    diffs["host"] = estimates_diff(host.process_frame(g["rgb"][int(g["host_scene"])], g["depth"][int(g["host_scene"])]),
+                                   g, "case", 0)
+    ms = service()
+    ms.enable_multiscale(train_depth=float(g["ms_train_depth"]), num_scales=int(g["ms_scales"]))
+    diffs["multiscale"] = estimates_diff(ms.process_frame(g["rgb"][int(g["ms_scene"])], g["depth"][int(g["ms_scene"])]),
+                                         g, "case", 1)
+    for name, d in diffs.items():
+        check(d["within_tol"], f"the service's {name} estimates differ from JAX's: {d}")
+    emit("synth_golden", t0, launches=launches, result={k: got[k] for k in ("targets", "hits", "hits_vsd", "per_object")},
+         equals_jax=True, estimates_vs_jax=diffs, tolerance=dict(FUSED_TOL, fitness=0.01, verify=0.01))
+    return launches
+
+
+def phase_synth(dev, bank_path: str, train_s: float):
+    """``run_benchmark`` at the settings of ``SYNTH_r05.json`` on the card,
+    over the bank of ``train_synth``: its recall beside the record's, gated
+    at the record minus ``SYNTH_RECALL_FLOOR`` and 77 +- 2 targets."""
+    t0 = time.perf_counter()
+    services: list = []
+    LR.similarity_local_sparse_cuda.launches = 0
+    with recording_services(services):
+        r = TB.run_benchmark(bank_cache=bank_path, verbose=False, device=dev, **SYNTH_SETTINGS)
+    torch.cuda.synchronize()
+    launches = LR.similarity_local_sparse_cuda.launches
+    check(launches == SYNTH_SETTINGS["num_scenes"] + 11,
+          f"{launches} refine launches for {SYNTH_SETTINGS['num_scenes']} scenes")
+    line = {k: r[k] for k in ("recall", "recall_vsd", "targets", "hits", "hits_vsd", "per_object")}
+    line.update(train_time_s=train_s, detect_refine_s_per_frame=r["detect_refine_s_per_frame"],
+                device_ms_per_frame=r.get("device_ms_per_frame"), record_SYNTH_r05=SYNTH_RECORD)
+    print(json.dumps({"synth": line}), flush=True)
+    check(abs(r["targets"] - SYNTH_RECORD["targets"]) <= 2, f"{r['targets']} targets, the record has 77")
+    for key in ("recall", "recall_vsd"):
+        check(r[key] >= SYNTH_RECORD[key] - SYNTH_RECALL_FLOOR, f"{key} {r[key]} below the record's floor")
+    emit("synth", t0, launches=launches, result=r, service_metrics=services[0].metrics.snapshot())
+    return launches, services[0], r
+
+
+def synth_scene(dev):
+    """The benchmark's first full-width scene (seed 0, 4 objects), as numpy."""
+    models = TB.make_models()
+    rgb, depth, _ = TB.make_scene(models, TB.benchmark_K(SYNTH_IM), SYNTH_IM, np.random.default_rng(0),
+                                  max_objects=SYNTH_SETTINGS["max_objects_per_scene"], device=dev)
+    return rgb, depth
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1285,6 +1600,20 @@ def main() -> int:
     phase_refine_golden(dev)
     phase_mc_golden(dev)
     phase_ms_golden(dev)
+    render_ms = phase_render(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        bank_path = os.path.join(tmp, "synth_bank.npz")
+        train_s, train_per_class = phase_train_synth(dev, bank_path)
+        golden_launches = phase_synth_golden(dev)
+        synth_launches, svc, synth_result = phase_synth(dev, bank_path, train_s)
+    stages = svc.metrics.snapshot()["stages"]
+    synth = {
+        "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
+        "device_ms_per_fused_frame": synth_result.get("device_ms_per_frame"),
+        "render_ms_per_16_views": render_ms,
+        "train_time_s": train_s,
+        "train_seconds_per_class": train_per_class,
+    }
     t0 = time.perf_counter()
     multiscale = timing_multiscale(dev, w_ms, ms, ms_call)
     multiscale["seconds"] = time.perf_counter() - t0
@@ -1292,7 +1621,7 @@ def main() -> int:
     multiclass = timing_multiclass(dev, w, mc, pipe, mc_calls[-1], full_case, lm_case)
     multiclass["seconds"] = time.perf_counter() - t0
     kern_ms, plain_ms, lib_ms, bound = phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage,
-                                                    multiclass, multiscale)
+                                                    multiclass, multiscale, synth)
     bank = det.device_bank(cid)
     rgb, dep = frame_tensors(frames, depths, dev)
     run = refine_runner(cid, det, refine_stage, dev)
@@ -1302,8 +1631,11 @@ def main() -> int:
     phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD), n=3)
     rgb_ms, dep_ms = torch.from_numpy(w_ms["rgb"]).to(dev), torch.from_numpy(w_ms["depth"].astype(np.int32)).to(dev)
     phase_profile("profile_ms", lambda: ms["card"].match_arrays(rgb_ms, dep_ms, LOW_THRESHOLD), n=3)
+    rgb_s, dep_s = synth_scene(dev)
+    phase_profile("profile_synth", lambda: svc.process_frame(rgb_s, dep_s), n=3)
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
-                "refine_mc": mc_refine_launches, "match_ms": ms_launches}
+                "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
+                "synth": synth_launches}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 

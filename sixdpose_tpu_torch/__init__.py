@@ -2,11 +2,15 @@
 
 It sits beside the JAX package, mirrors its layout, and imports nothing of
 it (nor JAX).  Entry points run on the GPU unless the caller passes
-``device="cpu"``.  Ported so far: the single-class template matcher
-(``models.detector``) with its ops, and the fused detect -> refine ->
-verify frame (``models.pipeline``, with batched ICP and verification in
-``models.refine``); the Pallas local-refine kernels are one hand-written
-CUDA kernel (``csrc/local_refine.cu``).
+``device="cpu"``.  Ported so far: the template matcher for one class, every
+class of a bank and every proposed depth (``models.detector``,
+``models.multiclass``, ``models.multiscale``) with its ops; the fused
+detect -> refine -> verify frames (``models.pipeline``, with batched ICP and
+verification in ``models.refine``); the rasterizer (``geometry``),
+render-trained banks (``models.train``), the pose-error metrics
+(``eval``), the serving entry point (``serving.PoseEstimationService``) and
+the synthetic accuracy benchmark (``benchmark``).  The Pallas local-refine
+kernels are one hand-written CUDA kernel (``csrc/local_refine.cu``).
 """
 
 __version__ = "0.1.0"

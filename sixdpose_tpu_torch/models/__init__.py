@@ -1,3 +1,3 @@
 """Model-level APIs: the template bank, the template-matching detector,
-batched ICP and verification, and the fused detect -> refine -> verify
-pipeline."""
+batched ICP and verification, the fused detect -> refine -> verify
+pipeline, and render-based training."""

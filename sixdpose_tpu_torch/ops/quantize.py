@@ -23,6 +23,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+# The JAX package's quantizer version: the same behaviour, so a bank cache
+# written by either package stays valid for the other (see
+# benchmark.train_benchmark_bank).
+QUANTIZER_VERSION = "v3-fastatan2-fixedpoint-blur"
+
 # OpenCV's 7-tap Gaussian for sigma=0, times 256 (exact).
 _GAUSS7_256 = (8, 28, 56, 72, 56, 28, 8)
 

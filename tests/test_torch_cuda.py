@@ -3,10 +3,11 @@
 The local-refine kernel against its plain version on the card, the
 wrapper's input checks, the detector on the card against its CPU run, the
 scene maps, batched ICP, verification and the fused detect+refine frame on
-the card against their CPU runs, and the multi-class path (the matmul
-coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``) and
-the multi-scale matchers (``MultiScaleMultiClass``, ``MultiScaleDetector``)
-on the card against their CPU runs.
+the card against their CPU runs, the multi-class path (the matmul
+coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``),
+the multi-scale matchers (``MultiScaleMultiClass``, ``MultiScaleDetector``),
+the rasterizer, ``PoseEstimationService`` and ``run_benchmark`` on the card
+against their CPU runs and the JAX goldens.
 They import neither JAX nor the JAX package, so a GPU machine without JAX
 runs them apart from the suite's conftest (which imports JAX):
 
@@ -403,3 +404,113 @@ def test_multiscale_on_card_equals_cpu_and_waits_for_nothing(cuda):
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert _same(out, g) and bool((single[3] >= 0).any())
+
+
+# -- rendering, the service and the synthetic benchmark -----------------------
+#
+# The rasterizer's arithmetic has a fixed order on every device: the card's
+# renders equal the CPU's to the bit.  The service's estimates go through
+# ICP: within FUSED_TOL of the CPU run (so far equal).
+
+
+def _synth_golden():
+    import json
+
+    g = np.load(os.path.join(TESTDATA, "synth_golden.npz"))
+    return g, json.loads(str(g["settings"]))
+
+
+def test_render_on_card_equals_cpu_and_waits_for_nothing(cuda):
+    """Every benchmark mesh in all three modes of ``render``, and a batch of
+    poses through the training renderer, bitwise; the JAX golden's renders;
+    a batch with every synchronizing call raising."""
+    from sixdpose_tpu_torch import benchmark as TB
+    from sixdpose_tpu_torch.geometry import render as GR
+    from sixdpose_tpu_torch.geometry.transform import random_rotation
+
+    g, _ = _synth_golden()
+    K, size = g["render_K"], tuple(int(v) for v in g["render_size"])
+    models = TB.make_models()
+    for i, (cid, m) in enumerate((c, m) for c, m in models.items() for _ in range(2)):
+        R, t = g["render_R"][i], g["render_t"][i]
+        for mode in ("depth", "rgb+depth", "rgb"):
+            card = GR.render(dict(m), size, K, R, t, mode=mode, texture=m.get("texture"), device=cuda)
+            cpu = GR.render(dict(m), size, K, R, t, mode=mode, texture=m.get("texture"), device="cpu")
+            card, cpu = (card, cpu) if isinstance(card, tuple) else ((card,), (cpu,))
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(card, cpu)), (cid, mode)
+        rgb, depth = GR.render(dict(m), size, K, R, t, mode="rgb+depth", device=cuda)
+        assert np.array_equal(depth.cpu().numpy(), g["render_depth"][i]) and np.array_equal(rgb.cpu().numpy(), g["render_rgb"][i])
+    rng = np.random.default_rng(1)
+    m = models["texbox"]
+    pts, faces, uv = GR.subdivide_mesh(m["pts"], m["faces"], 10.0, np.asarray(m["texture_uv"], np.float64))
+    Rs = np.stack([random_rotation(rng) for _ in range(8)]).astype(np.float32)
+    ts = np.tile(np.array([[0.0, 0.0, 450.0]], np.float32), (8, 1))
+    out = {}
+    for device in (cuda, "cpu"):
+        up = lambda a, d=np.float32: torch.from_numpy(np.ascontiguousarray(np.asarray(a, d))).to(device)  # noqa: E731
+        args = (up(pts), up(faces, np.int64), up(uv), up(m["texture"] / 255.0), up(K), up(Rs), up(ts), (96, 72))
+        out[str(device)] = args, GR.render_textured(*args)
+    (args, (rgb_g, dep_g)), (_, (rgb_c, dep_c)) = out[str(cuda)], out["cpu"]
+    assert torch.equal(rgb_g.cpu(), rgb_c) and torch.equal(dep_g.cpu(), dep_c)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        rgb_again, _ = GR.render_textured(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert torch.equal(rgb_again, rgb_g)
+
+
+def test_service_on_card_matches_cpu_and_the_jax_golden(cuda):
+    """The golden's scenes through ``PoseEstimationService`` on the card:
+    the same published estimates as the CPU run and the JAX golden (ints
+    exactly, R 1e-4, t 0.1 mm, fitness and verify 0.01), one refine kernel
+    launch per frame."""
+    import json
+
+    from sixdpose_tpu_torch import benchmark as TB
+    from sixdpose_tpu_torch.config import IcpConfig
+    from sixdpose_tpu_torch.serving import PoseEstimationService
+
+    g, settings = _synth_golden()
+    svc = json.loads(str(g["service"]))
+    models = {c: TB.make_models()[c] for c in settings["object_ids"]}
+    services = {}
+    for device in (cuda, "cpu"):
+        det = Detector.read_classes(os.path.join(TESTDATA, "synth_bank.npz"), TB.benchmark_config(settings["top_k"]),
+                                    device=device)
+        services[str(device)] = PoseEstimationService(
+            det, models, TB.benchmark_K(tuple(settings["im_size"])), threshold=svc["threshold"],
+            max_refine=svc["max_refine"], icp=IcpConfig(max_iters=svc["icp_max_iters"]), min_fitness=svc["min_fitness"],
+            icp_seeds=svc["icp_seeds"], verify_tau=svc["verify_tau"], seed_flip=svc["seed_flip"], device=device)
+    before = LR.similarity_local_sparse_cuda.launches
+    for i in range(settings["num_scenes"]):
+        card = services[str(cuda)].process_frame(g["rgb"][i], g["depth"][i])
+        cpu = services["cpu"].process_frame(g["rgb"][i], g["depth"][i])
+        assert len(card) == len(cpu) == int(g["est_n"][i])
+        for j, (a, b) in enumerate(zip(card, cpu)):
+            assert (a.class_id, a.template_id, a.x, a.y, a.similarity) == (b.class_id, b.template_id, b.x, b.y, b.similarity)
+            assert a.class_id == str(g["est_class"][i, j]) and a.template_id == g["est_template_id"][i, j]
+            assert np.abs(a.R - b.R).max() <= 1e-4 and np.abs(a.t - b.t).max() <= 0.1
+            assert np.abs(a.R - g["est_R"][i, j]).max() <= 1e-4 and np.abs(a.t.ravel() - g["est_t"][i, j]).max() <= 0.1
+            assert abs(a.fitness - b.fitness) <= 0.01 and abs(a.verify - b.verify) <= 0.01
+    assert LR.similarity_local_sparse_cuda.launches == before + settings["num_scenes"]
+
+
+def test_run_benchmark_on_card_matches_jax_golden(cuda, tmp_path):
+    """``run_benchmark`` on the card at the golden's cut size, over the
+    JAX-trained bank: JAX's targets, hits, VSD hits and per-object recall."""
+    import json
+    import shutil
+
+    from sixdpose_tpu_torch import benchmark as TB
+
+    g, settings = _synth_golden()
+    cache = str(tmp_path / "bank.npz")
+    shutil.copy(os.path.join(TESTDATA, "synth_bank.npz"), cache)
+    shutil.copy(os.path.join(TESTDATA, "synth_bank.npz.meta.json"), cache + ".meta.json")
+    got = TB.run_benchmark(bank_cache=cache, verbose=False, device=cuda, **settings)
+    want = json.loads(str(g["result"]))
+    assert {k: got[k] for k in ("targets", "hits", "hits_vsd", "per_object")} == {
+        k: want[k] for k in ("targets", "hits", "hits_vsd", "per_object")}
+    assert got["device_ms_per_frame"] > 0

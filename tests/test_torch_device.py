@@ -159,3 +159,49 @@ def test_multiscale_entry_points_default_to_the_card(monkeypatch):
     assert out[0].device.type == "cpu" and out[0].shape == (CFG.top_k,)
     out = MultiScaleMultiClass(det, 450.0, num_scales=2, device="cpu").match_arrays(rgb, depth, 50.0)
     assert out[6].device.type == "cpu" and out[6].shape == (2, CFG.top_k)
+
+
+def test_render_train_serve_eval_entry_points_default_to_the_card(monkeypatch):
+    """render, render_train_templates, the pose-error metrics, calc_errors,
+    PoseEstimationService, make_scene, train_benchmark_bank and
+    run_benchmark raise the same RuntimeError as the other entry points
+    without CUDA unless the CPU is asked for."""
+    from sixdpose_tpu_torch import benchmark as TB
+    from sixdpose_tpu_torch.eval import loc, pose_error
+    from sixdpose_tpu_torch.geometry.render import render
+    from sixdpose_tpu_torch.models.train import render_train_templates
+    from sixdpose_tpu_torch.serving import PoseEstimationService
+
+    model = TB.make_models()["box"]
+    K = np.array([[84.0, 0, 48], [0, 84.0, 36], [0, 0, 1]])
+    R, t = np.eye(3), np.array([0.0, 0.0, 400.0])
+    depth = np.zeros((72, 96), np.uint16)
+    det = Detector(CFG, device="cpu")
+    gts = [{"obj_id": "box", "cam_R_m2c": R, "cam_t_m2c": t}]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "render": lambda **kw: render(model, (96, 72), K, R, t, **kw),
+        "render_train_templates": lambda **kw: render_train_templates(
+            Detector(CFG, device="cpu"), "box", model, K, [400.0], min_n_views=12, im_size=(96, 72),
+            tilt_range=(0.0, 0.1), tilt_step=1.0, **kw),
+        "add": lambda **kw: pose_error.add(R, t, R, t, model, **kw),
+        "adi": lambda **kw: pose_error.adi(R, t, R, t, model, **kw),
+        "vsd": lambda **kw: pose_error.vsd(R, t, R, t, model, depth, K, 15.0, 20.0, **kw),
+        "cou": lambda **kw: pose_error.cou(R, t, R, t, model, (96, 72), K, **kw),
+        "calc_errors": lambda **kw: loc.calc_errors([{"score": 1.0, "R": R, "t": t}], gts, model, depth, K, **kw),
+        "PoseEstimationService": lambda **kw: PoseEstimationService(det, {"box": model}, K, **kw),
+        "make_scene": lambda **kw: TB.make_scene({"box": model}, K, (96, 72), np.random.default_rng(0), **kw),
+        "train_benchmark_bank": lambda **kw: TB.train_benchmark_bank(
+            {"box": model}, K, (96, 72), 12, CFG, verbose=False, **kw),
+        "run_benchmark": lambda **kw: TB.run_benchmark(num_scenes=0, min_n_views=12, im_size=(96, 72),
+                                                       object_ids=["box"], verbose=False, **kw),
+    }
+    messages = {}
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="CUDA") as err:
+            call()
+        messages[name] = str(err.value)
+    assert len(set(messages.values())) == 1, messages
+    assert render(model, (96, 72), K, R, t, device="cpu").device.type == "cpu"
+    assert PoseEstimationService(det, {"box": model}, K, device="cpu").device.type == "cpu"
+    assert pose_error.vsd(R, t, R, t, model, depth, K, 15.0, 20.0, device="cpu") == 1.0

@@ -3,7 +3,8 @@
 In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
 ``sixdpose_tpu`` (exact top-level names: ``sixdpose_tpu_torch`` shares the
 prefix and must still import), every module of the port and
-``chip_smoke`` must import.  The sources must not name them either.
+``chip_smoke`` must import, and none of them may import ``yaml`` or ``PIL``
+at module import.  The sources must not name JAX either.
 """
 
 import os
@@ -43,6 +44,9 @@ except ImportError:
     pass
 else:
     raise SystemExit("the blocker let sixdpose_tpu through")
+eager = sorted({n.split(".")[0] for n in sys.modules} & {"yaml", "PIL"})
+if eager:
+    raise SystemExit(f"imported at module import: {eager}")
 print("imported", len(names), "modules and chip_smoke:", " ".join(names))
 """
 
@@ -55,7 +59,8 @@ def test_port_imports_without_jax():
     assert out.returncode == 0, out.stderr
     assert "chip_smoke" in out.stdout
     for name in ("models.multiclass", "models.multiscale", "models.pipeline", "ops.scale_proposal", "ops.similarity",
-                 "convert", "synthetic"):
+                 "convert", "synthetic", "geometry.transform", "geometry.view_sampler", "geometry.render", "eval.misc",
+                 "eval.pose_error", "eval.score", "eval.loc", "models.train", "utils.timing", "serving", "benchmark"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 
