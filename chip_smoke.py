@@ -31,7 +31,12 @@ Drives the port's main paths, and checks every result:
   verify_tau 6, 20 scenes): rendering, render-trained banks
   (``render_train_templates`` through ``benchmark.train_benchmark_bank``),
   and ``run_benchmark`` serving every scene through
-  ``PoseEstimationService`` and scoring it with ADI and VSD.
+  ``PoseEstimationService`` and scoring it with ADI and VSD;
+- at the full width of the JAX package's LCHF tool (``tools/lchf_pipeline.py``
+  pose_eval: the box, 320 x 240, f = 280, radius 500, 50-px patches at
+  stride 10, 5 trees; 20 training views of its 420, 12 held-out views):
+  training patches, the similarity matrix and the forest on the card, and
+  ``evaluate_pose_recall`` with the forest walk on the card.
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -99,7 +104,20 @@ non-zero:
    hits, per-object recall, training seconds and per-frame times beside the
    record, gated at 77 +- 2 targets and each recall no lower than the
    record's minus 0.10;
-16. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+16. lchf: the ``phase="exact"`` orientation bins of every integer Sobel pair
+   on the card against the CPU; training patches (the first 200 or more
+   against the CPU), the similarity matrix (against the CPU), the forest
+   trained from the card's matrix (against the one trained from the CPU's,
+   node for node); ``evaluate_pose_recall`` over the 12 held-out views with
+   the refine kernel's launch count set to 0 just before and read just
+   after (the path reaches no kernel); on 3 views ROIs, leaves, the vote
+   tensor, top bins and hypotheses equal to the CPU's and refined poses
+   within ``FUSED_TOL``; stage times (extraction per patch, the matrix
+   beside its bytes bound, host training, the walk per scene, the votes,
+   ICP per view) and launch counts; then the JAX golden of
+   ``tools/torch_port_lchf_golden.py`` at 160 x 120.  One line
+   ``{"lchf": {...}}``;
+17. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -121,15 +139,15 @@ non-zero:
    Under ``synth``: the service's stage times per served frame, device ms
    per fused frame, render ms per 16-view batch and training seconds per
    class;
-17. profile, profile_refine, profile_mc, profile_ms, profile_synth:
+18. profile, profile_refine, profile_mc, profile_ms, profile_synth:
    torch.profiler's split of a B=1 match frame, of a B=1 detect+refine frame, of a fused
    multi-class frame, of a one-pass multi-scale frame and of one frame
    served by ``PoseEstimationService`` on a rendered benchmark scene into
    device kernels and host ops, and the device's idle share;
-18. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+19. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
    source, the TPU kernels it replaces, its launches in the main paths'
-   phases (in all and per phase, ``synth_golden`` and ``synth`` among
-   them), its error against the plain version, and
+   phases (in all and per phase, ``synth_golden``, ``synth`` and ``lchf``
+   among them), its error against the plain version, and
    its time beside the plain version's, the library call's and the bound
    (at the bench B=1 call, the multi-class call and the multi-scale call);
    then the ``nvidia-smi`` line again.
@@ -141,6 +159,7 @@ the script prints no result and exits 2.
 from __future__ import annotations
 
 import json
+import multiprocessing
 import os
 import shutil
 import statistics
@@ -148,6 +167,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ProcessPoolExecutor
 from contextlib import contextmanager
 
 import numpy as np
@@ -157,8 +177,30 @@ from sixdpose_tpu_torch import benchmark as TB
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
 from sixdpose_tpu_torch.convert import refine_bank_from_numpy
+from sixdpose_tpu_torch.eval import pose_error
+from sixdpose_tpu_torch.eval.misc import model_diameter
 from sixdpose_tpu_torch.geometry import render as GR
 from sixdpose_tpu_torch.geometry.transform import random_rotation
+from sixdpose_tpu_torch.geometry.view_sampler import sample_views
+from sixdpose_tpu_torch.lchf import (
+    Forest,
+    LchfConfig,
+    LchfModel,
+    Node,
+    PatchFeature,
+    PatchSet,
+    accumulate_votes,
+    decode_bin_poses,
+    evaluate_pose_recall,
+    extract_patch_feature,
+    make_training_patches,
+    refine_lchf_poses,
+    scene_roi_set,
+    train_forest,
+)
+from sixdpose_tpu_torch.lchf.device import DeviceForest, DeviceRoiSet, similarity_matrix_device
+from sixdpose_tpu_torch.lchf.pose import lchf_vote_bins
+from sixdpose_tpu_torch.lchf.voting import dense_rois
 from sixdpose_tpu_torch.models import detector as D
 from sixdpose_tpu_torch.models import multiscale as M
 from sixdpose_tpu_torch.models import pipeline as P
@@ -169,6 +211,7 @@ from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleM
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import local_refine as LR
+from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops import similarity as S
 from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
@@ -1253,7 +1296,7 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
     return b1["kernel_ms"], b1["plain_ms"], lib_ms, b1["bound"]
 
 
-def phase_profile(name: str, frame, n: int = 5):
+def phase_profile(name: str, frame, n: int = 3):
     """Where a frame's time goes: torch.profiler over ``n`` calls of
     ``frame()`` after warm-up.  Device time is the sum of kernel self times
     (one stream, so they do not overlap); the idle share is the rest of the
@@ -1563,6 +1606,381 @@ def synth_scene(dev):
     return rgb, depth
 
 
+# -- the Latent-Class Hough Forest path ----------------------------------------
+
+# The JAX tool's pose_eval configuration (tools/lchf_pipeline.py): the box,
+# 320 x 240, f = 280, train radius 500, LchfConfig defaults, 50-px patches at
+# stride 10, 5 trees, dense ROIs at stride 10, top 10 bins, 5 ICP seeds.  Its
+# --views 20 samples 420 poses (42 points x 10 in-plane tilts) and
+# --eval-views 12 samples 120: the phase trains on every 21st and evaluates
+# every 10th (20 and 12 views).
+LCHF_IM = (320, 240)
+LCHF_K = np.array([[280.0, 0, 160.0], [0, 280.0, 120.0], [0, 0, 1]])
+LCHF_RADIUS = 500.0
+LCHF_TRAIN_VIEWS, LCHF_EVAL_VIEWS = 20, 12
+LCHF_ROI_STRIDE, LCHF_TOP_K, LCHF_ICP_SEEDS = 10, 10, 5
+LCHF_CPU_PATCHES, LCHF_CPU_VIEWS = 200, 3  # the CPU reference's share
+LCHF_CPU_THREADS = 4  # the CPU reference's worker leaves the other cores to the card's host work
+# The JAX golden (tools/torch_port_lchf_golden.py, the configuration of
+# tests/test_lchf.py::test_lchf_6d_pose_recall); the card extracts the
+# patches of its first LCHF_GOLDEN_VIEWS training poses.
+LCHF_GOLDEN = dict(im=(160, 120), K=np.array([[200.0, 0, 80.0], [0, 200.0, 60.0], [0, 0, 1]]), radius=420.0,
+                   cfg=LchfConfig(num_features=6, extract_threshold=1, strong_threshold=30.0), patch=40, stride=12,
+                   roi_stride=8, top_k=5, icp_seeds=5, step_iters=2, views=12)
+
+
+def lchf_views():
+    """(20 training views, 12 held-out views) of the pose_eval configuration."""
+    train, _ = sample_views(LCHF_TRAIN_VIEWS, radius=LCHF_RADIUS)
+    held, _ = sample_views(LCHF_EVAL_VIEWS, radius=LCHF_RADIUS)
+    return train[:: len(train) // LCHF_TRAIN_VIEWS][:LCHF_TRAIN_VIEWS], held[:: len(held) // LCHF_EVAL_VIEWS][:LCHF_EVAL_VIEWS]
+
+
+def lchf_render(mesh, im, K, view, device):
+    rgb, depth = GR.render(mesh, im, K, view["R"], view["t"], mode="rgb+depth", device=device)
+    return rgb.cpu().numpy(), depth.cpu().numpy().astype(np.uint16)
+
+
+def kernel_launches(fn) -> int:
+    """Device kernels one call of ``fn`` launches (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return int(sum(r.count for r in prof.key_averages() if r.device_type == DeviceType.CUDA))
+
+
+def same_patches(a, b) -> bool:
+    return len(a) == len(b) and all(
+        np.array_equal(x.features, y.features) and np.array_equal(x.z_rel, y.z_rel) and x.center_dep == y.center_dep
+        and tuple(x.shape) == tuple(y.shape) and np.array_equal(x.responses, y.responses)
+        and np.array_equal(x.z_avg, y.z_avg) for x, y in zip(a, b))
+
+
+def forest_tables(forest) -> list:
+    """Per tree: node table, thresholds and the leaves' samples."""
+    return [(np.array([[nd.issplit, nd.pnode, nd.depth, *nd.cnodes, nd.isleafnode, nd.split_feat_idx] for nd in t.nodes],
+                      np.int64),
+             np.array([nd.simi_thresh for nd in t.nodes], np.float32),
+             np.concatenate([t.nodes[i].ind_feats for i in t.id_leafnodes]))
+            for t in forest.trees]
+
+
+def same_forest(fa, fb) -> bool:
+    ta, tb = forest_tables(fa), forest_tables(fb)
+    return len(ta) == len(tb) and all(all(np.array_equal(x, y) for x, y in zip(a, b)) for a, b in zip(ta, tb))
+
+
+def exact_phase_bins(device):
+    """The ``phase="exact"`` orientation bins (and degrees) of every integer
+    Sobel pair in [-1020, 1020]^2, as ``quantize_color_gradient`` bins them."""
+    r = torch.arange(-1020, 1021, dtype=torch.float32, device=device)
+    gy, gx = torch.meshgrid(r, r, indexing="ij")
+    deg = Q.exact_atan2_deg(gy.reshape(-1), gx.reshape(-1))
+    bins = torch.round(deg * Q._f32(16.0 / 360.0, device)).to(torch.int32) & 15
+    return bins.cpu().numpy(), deg.cpu().numpy()
+
+
+def refined_diff(a, b) -> dict:
+    """Refined (R, t mm, fitness, verify) of two runs: largest differences,
+    fitness and verify in points of their 512."""
+    return {"R": float(np.abs(a[0] - b[0]).max(initial=0.0)), "t_mm": float(np.abs(a[1] - b[1]).max(initial=0.0)),
+            "fitness_points": float(np.abs(a[2] - b[2]).max(initial=0.0) * 512),
+            "verify_points": float(np.abs(a[3] - b[3]).max(initial=0.0) * 512),
+            "bitwise": all(np.array_equal(x, y) for x, y in zip(a, b))}
+
+
+def within_fused_tol(d: dict) -> bool:
+    return all(d[k] <= FUSED_TOL[k] for k in FUSED_TOL)
+
+
+def lchf_cpu_patches(frames: list, rotations: list, cfg: LchfConfig, at_least: int) -> list:
+    """The CPU's training patches of the first views, ``at_least`` of them
+    or more (a worker-process task)."""
+    out = []
+    for (rgb, depth), R in zip(frames, rotations):
+        if len(out) >= at_least:
+            break
+        out += make_training_patches(rgb, depth, (depth > 0).astype(np.uint8) * 255, R, cfg, device="cpu")[0]
+    return out
+
+
+def lchf_cpu_forest(patches: list, rpy: np.ndarray, z_check: float):
+    """The CPU's similarity matrix and the forest ``train_forest(on_device=True)``
+    trains from it (its defaults: 5 trees, bagging 0.8, seed 0); a
+    worker-process task."""
+    sim = similarity_matrix_device(patches, PatchSet.from_features(patches), z_check, "cpu")
+    forest = Forest()
+    forest.train(lambda pivot, members: sim[pivot, np.asarray(members)], rpy)
+    return sim, forest
+
+
+def lchf_views_on(model, mesh, frames: list, cfg: LchfConfig, depth_offset: float, device) -> list:
+    """(votes front, hypotheses, refined poses) of each frame with the walk
+    on ``device`` (the CPU's run is a worker-process task)."""
+    out = []
+    for rgb, depth in frames:
+        front = lchf_vote_bins(model, rgb, depth, LCHF_RADIUS, cfg, LCHF_ROI_STRIDE, top_k=LCHF_TOP_K, on_device=True,
+                               device=device)
+        hyps = decode_bin_poses(front["bins"], *front["vote_arrays"], LCHF_K, LCHF_RADIUS, depth_offset=depth_offset)
+        out.append((front, hyps, refine_lchf_poses(hyps, mesh, depth, LCHF_K, None, icp_seeds=LCHF_ICP_SEEDS,
+                                                   device=device)))
+    return out
+
+
+def phase_lchf(dev) -> tuple:
+    """The LCHF path at the pose_eval configuration on the card: the
+    exact-phase bins of every Sobel pair, training patches, the similarity
+    matrix, the forest (trained from the card's matrix), and
+    ``evaluate_pose_recall`` over the held-out views with the forest walk
+    on the card, each held against the port's CPU run (patches on the first
+    ``LCHF_CPU_PATCHES``, votes to refined poses on ``LCHF_CPU_VIEWS`` views),
+    which a spawned worker computes while the card works; then the JAX
+    golden.  Prints ``{"lchf": ...}``."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(step):
+        marks[step] = time.perf_counter() - t0 - sum(marks.values())
+
+    card_bins, card_deg = exact_phase_bins(dev)
+    cpu_bins, cpu_deg = exact_phase_bins("cpu")
+    enum = {"pairs": int(card_bins.size), "bins_differing": int((card_bins != cpu_bins).sum()),
+            "degrees_differing": int((card_deg != cpu_deg).sum())}
+    check(enum["bins_differing"] == 0, f"exact-phase bins on the card differ from the CPU: {enum}")
+    mark("enumeration")
+
+    mesh = TB.make_models()["box"]
+    cfg = LchfConfig()
+    train_views, eval_views = lchf_views()
+    frames = [lchf_render(mesh, LCHF_IM, LCHF_K, v, dev) for v in train_views]
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(LCHF_CPU_THREADS,))
+    try:
+        cpu_patches = pool.submit(lchf_cpu_patches, frames, [v["R"] for v in train_views], cfg, LCHF_CPU_PATCHES)
+        LR.similarity_local_sparse_cuda.launches = 0
+        w0 = time.perf_counter()
+        per_view = []
+        for (rgb, depth), v in zip(frames, train_views):
+            per_view.append(make_training_patches(rgb, depth, (depth > 0).astype(np.uint8) * 255, v["R"], cfg,
+                                                  device=dev))
+        torch.cuda.synchronize()
+        extract_s = time.perf_counter() - w0
+        patches = [p for f, _, _ in per_view for p in f]
+        rpys = np.asarray([r for _, rs, _ in per_view for r in rs], np.float32)
+        ts = np.asarray([t for _, _, tl in per_view for t in tl], np.float32)
+        cpu_patches = cpu_patches.result()
+        check(len(cpu_patches) >= LCHF_CPU_PATCHES, f"only {len(cpu_patches)} CPU patches")
+        check(same_patches(patches[: len(cpu_patches)], cpu_patches), "training patches on the card differ from the CPU")
+        rgb0, depth0 = frames[0]
+        ys, xs = np.nonzero(depth0)
+        y0, x0 = int(ys.min()), int(xs.min())
+        crop = (slice(y0, y0 + 50), slice(x0, x0 + 50))
+        extract_launches = kernel_launches(
+            lambda: extract_patch_feature(rgb0[crop], depth0[crop], (depth0[crop] > 0).astype(np.uint8) * 255, cfg,
+                                          True, device=dev))
+        mark("training_set")
+
+        cpu_forest = pool.submit(lchf_cpu_forest, patches, rpys, cfg.z_check)
+        pset = PatchSet.from_features(patches)
+        droi = DeviceRoiSet(pset, patches, cfg.z_check, dev)
+        s_card = droi.matrix().cpu().numpy()
+        sim_ms = cuda_ms(droi.matrix, reps=3)
+        piv = droi.pivots
+        sim_bytes = (pset.responses.nbytes + pset.z_avg.nbytes + pset.center.nbytes + s_card.nbytes
+                     + sum(x.numel() * x.element_size() for x in (piv.feats, piv.valid, piv.zrel, piv.center, piv.shape)))
+        w0 = time.perf_counter()
+        model = train_forest(patches, rpys, ts, cfg, on_device=True, device=dev)
+        train_s = time.perf_counter() - w0
+        s_cpu, forest_cpu = cpu_forest.result()
+        check(np.array_equal(s_card, s_cpu), "the similarity matrix on the card differs from the CPU")
+        check(same_forest(model.forest, forest_cpu), "the forest trained from the card's matrix differs")
+        mark("matrix_and_forest")
+
+        depth_offset = float(LCHF_RADIUS - np.mean([p.center_dep for p in model.patches]))
+        view_frames = [lchf_render(mesh, LCHF_IM, LCHF_K, v, dev) for v in eval_views[:LCHF_CPU_VIEWS]]
+        cpu_views = pool.submit(lchf_views_on, model, mesh, view_frames, cfg, depth_offset, "cpu")
+        # The main path: evaluate_pose_recall (the forest walk on the card)
+        # over the held-out views, refine launch counts set to 0 just before.
+        LR.similarity_local_sparse_cuda.launches = 0
+        w0 = time.perf_counter()
+        res = evaluate_pose_recall(model, mesh, LCHF_K, LCHF_IM, eval_views, LCHF_RADIUS, cfg, stride=LCHF_ROI_STRIDE,
+                                   top_k=LCHF_TOP_K, icp_seeds=LCHF_ICP_SEEDS, on_device=True, device=dev)
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - w0
+        launches = LR.similarity_local_sparse_cuda.launches
+        check(res["n_views"] == LCHF_EVAL_VIEWS, f"{res['n_views']} views evaluated")
+        card_views = lchf_views_on(model, mesh, view_frames, cfg, depth_offset, dev)
+        compared = []
+        for (fa, ha, ra), (fb, hb, rb) in zip(card_views, cpu_views.result()):
+            for key in ("rois", "leaves", "votes", "bins"):
+                check(np.array_equal(np.asarray(fa[key]), np.asarray(fb[key])), f"LCHF {key} on the card differ from the CPU")
+            check(len(ha) == len(hb) and all(all(np.array_equal(x[k], y[k]) for k in x) for x, y in zip(ha, hb)),
+                  "decoded LCHF hypotheses on the card differ from the CPU")
+            diff = refined_diff(ra, rb)
+            check(within_fused_tol(diff), f"refined LCHF poses on the card differ from the CPU: {diff}")
+            compared.append({"rois": int(len(fa["rois"])), "votes": int(len(fa["vote_arrays"][0])),
+                             "hypotheses": len(ha), "refined_vs_cpu": diff})
+        mark("evaluation")
+    finally:
+        pool.shutdown(cancel_futures=True)
+
+    # Stage times on the first held-out view.
+    rgb, depth = lchf_render(mesh, LCHF_IM, LCHF_K, eval_views[0], dev)
+    rois = dense_rois(depth, stride=LCHF_ROI_STRIDE, device=dev)
+    roi_set = scene_roi_set(rgb, depth, rois, cfg, dev)
+    forest = DeviceForest(model, cfg.z_check, dev)
+    front = lchf_vote_bins(model, rgb, depth, LCHF_RADIUS, cfg, LCHF_ROI_STRIDE, top_k=LCHF_TOP_K, on_device=True,
+                           device=dev)
+    vote_shape = (LCHF_IM[0] // 10, LCHF_IM[1] // 10, 10, 10, 10)
+    hyps = decode_bin_poses(front["bins"], *front["vote_arrays"], LCHF_K, LCHF_RADIUS, depth_offset=depth_offset)
+    votes = lambda: accumulate_votes(*front["vote_arrays"], LCHF_RADIUS, vote_shape, device=dev)  # noqa: E731
+    refine = lambda: refine_lchf_poses(hyps, mesh, depth, LCHF_K, None, icp_seeds=LCHF_ICP_SEEDS, device=dev)  # noqa: E731
+    stages = {
+        "walk_ms_per_scene": cuda_ms(lambda: forest.predict_tensor(roi_set), reps=3),
+        "walk_launches_per_scene": kernel_launches(lambda: forest.predict_tensor(roi_set)),
+        "walk_steps": forest.max_depth * len(forest.tables.trees),
+        "vote_ms": cuda_ms(votes, reps=3),
+        "vote_launches": kernel_launches(votes),
+        "icp_ms_per_view": cuda_ms(refine, reps=3),
+        "icp_candidates": len(hyps) * LCHF_ICP_SEEDS,
+    }
+    mark("stage_times")
+    golden = phase_lchf_golden(dev)
+    mark("golden")
+    line = {
+        "exact_phase_enumeration": enum,
+        "train_views": len(train_views), "patches": len(patches), "extraction_s": extract_s,
+        "extraction_ms_per_patch": extract_s * 1e3 / len(patches), "extraction_launches_per_patch": extract_launches,
+        "cpu_patches_compared": len(cpu_patches),
+        "similarity_matrix": {"shape": list(s_card.shape), "ms": sim_ms, "bytes": sim_bytes,
+                              "bound_ms": sim_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"},
+        "forest_train_s_host": train_s, "trees_nodes": [len(t.nodes) for t in model.forest.trees],
+        "eval_views": res["n_views"], "eval_s_per_view": eval_s / res["n_views"], "recall_add_s": res["recall"],
+        "errors_mm": [r.get("err_mm") for r in res["records"]],
+        "cpu_views_compared": compared, **stages, "refine_kernel_launches": launches, "golden": golden,
+        "host_s_by_step": marks,
+    }
+    print(json.dumps({"lchf": line}), flush=True)
+    emit("lchf", t0, **line)
+    return launches, line
+
+
+def golden_forest(g: dict, prefix: str, num_trees: int) -> Forest:
+    """A forest rebuilt from the golden's node tables, thresholds and the
+    leaves' samples (enough to predict)."""
+    forest = Forest(num_trees=num_trees)
+    for ti, tree in enumerate(forest.trees):
+        nodes, thresh = g[f"{prefix}{ti}_nodes"], g[f"{prefix}{ti}_thresh"]
+        leaf_ids = np.split(g[f"{prefix}{ti}_leaf_ids"], np.cumsum(g[f"{prefix}{ti}_leaf_count"])[:-1])
+        tree.nodes = [Node(issplit=bool(r[0]), pnode=int(r[1]), depth=int(r[2]), cnodes=(int(r[3]), int(r[4])),
+                           isleafnode=bool(r[5]), split_feat_idx=int(r[6]), simi_thresh=float(th))
+                      for r, th in zip(nodes, thresh)]
+        tree.id_leafnodes = [i for i, nd in enumerate(tree.nodes) if nd.isleafnode]
+        for i, ids in zip(tree.id_leafnodes, leaf_ids):
+            tree.nodes[i].ind_feats = ids
+    return forest
+
+
+def golden_patches(g: dict) -> list:
+    feats = np.split(g["features"], np.cumsum(g["feat_count"])[:-1])
+    zrel = np.split(g["z_rel"], np.cumsum(g["feat_count"])[:-1])
+    return [PatchFeature(features=f, z_rel=z, center_dep=float(c), responses=None, z_avg=None, shape=tuple(s))
+            for f, z, c, s in zip(feats, zrel, g["center_dep"], g["shape"])]
+
+
+def golden_top_bins_ok(bins, votes, g_bins, g_scores, top_k) -> bool:
+    """``bins`` a valid top-``top_k`` of ``votes`` with the golden's scores
+    (numpy's unstable argsort may order equal sums otherwise elsewhere)."""
+    bins = np.asarray(bins)
+    scores = votes[tuple(bins.T)] if len(bins) else np.zeros(0, np.float32)
+    if not np.array_equal(scores, g_scores) or len({tuple(b) for b in bins}) != len(bins):
+        return False
+    last = g_scores[-1] if len(g_scores) == top_k else None
+    return all({tuple(b) for b, x in zip(bins, scores) if x == s} == {tuple(b) for b, x in zip(g_bins, g_scores) if x == s}
+               for s in np.unique(g_scores) if s != last)
+
+
+def phase_lchf_golden(dev) -> dict:
+    """The JAX golden on the card (tools/torch_port_lchf_golden.py): the
+    training patches of its first poses, the similarity rows of its first
+    pivots against them, and, with its host-route forest, every evaluated
+    view: renders, ROIs, both routes' leaves, the vote tensor and top bins
+    exactly, its bins decoded exactly, the refine stage within ``FUSED_TOL``
+    at two ICP iterations, the best hypothesis and the hits at 20."""
+    c = LCHF_GOLDEN
+    with np.load(os.path.join(TESTDATA, "lchf_golden.npz")) as z:
+        g = {k: z[k] for k in z.files}
+    mesh = TB.make_models()["box"]
+    views, _ = sample_views(8, radius=c["radius"])
+    cfg = c["cfg"]
+    feats = []
+    for v in views[: c["views"]]:
+        rgb, depth = lchf_render(mesh, c["im"], c["K"], v, dev)
+        feats += make_training_patches(rgb, depth, (depth > 0).astype(np.uint8) * 255, v["R"], cfg, c["patch"],
+                                       c["stride"], device=dev)[0]
+    n = len(feats)
+    check(n == int(g["patches_per_view"][: c["views"]].sum()), f"{n} golden patches on the card")
+    ref = golden_patches(g)[:n]
+    check(all(np.array_equal(a.features, b.features) and np.array_equal(a.z_rel, b.z_rel)
+              and a.center_dep == b.center_dep and tuple(a.shape) == tuple(b.shape) for a, b in zip(feats, ref))
+          and np.array_equal([f.responses.astype(np.int64).sum() for f in feats], g["resp_sum"][:n])
+          and np.array_equal([f.z_avg.astype(np.float64).sum() for f in feats], g["zavg_sum"][:n])
+          and np.array_equal(np.stack([f.responses for f in feats[: len(g["responses_head"])]]), g["responses_head"])
+          and np.array_equal(np.stack([f.z_avg for f in feats[: len(g["zavg_head"])]]), g["zavg_head"]),
+          "golden training patches differ on the card")
+    rows = len(g["sim_head"])
+    sims = DeviceRoiSet(PatchSet.from_features(feats), feats[:rows], cfg.z_check, dev).matrix().cpu().numpy()
+    check(np.array_equal(sims, g["sim_head"][:, :n]), "golden similarity rows differ on the card")
+
+    model = LchfModel(forest=golden_forest(g, "host_tree", 2), patches=golden_patches(g), patch_set=None,
+                      rpy=g["rpy"], t=g["t"])
+    depth_offset = float(c["radius"] - np.mean(g["center_dep"]))
+    threshold_mm = 0.1 * model_diameter(mesh["pts"])
+    out = {"patches_compared": n, "sim_rows_compared": [rows, n], "views": []}
+    hits = []
+    for vi in range(3):
+        gv = {k[len(f"v{vi}_"):]: a for k, a in g.items() if k.startswith(f"v{vi}_")}
+        rgb, depth = lchf_render(mesh, c["im"], c["K"], views[vi], dev)
+        check(np.array_equal(rgb, gv["rgb"]) and np.array_equal(depth, gv["depth"]), "golden renders differ")
+        kw = dict(stride=c["roi_stride"], top_k=c["top_k"], device=dev)
+        front = lchf_vote_bins(model, rgb, depth, c["radius"], cfg, **kw)
+        front_walk = lchf_vote_bins(model, rgb, depth, c["radius"], cfg, on_device=True, **kw)
+        flat = front["votes"].reshape(-1)
+        check(np.array_equal(front["rois"], gv["rois"]) and np.array_equal(front["leaves"], gv["leaves"])
+              and np.array_equal(front_walk["leaves"], gv["leaves_jit"])
+              and np.array_equal(np.nonzero(flat)[0], gv["votes_idx"]) and np.array_equal(flat[gv["votes_idx"]], gv["votes_val"]),
+              f"golden view {vi}: ROIs, leaves or votes differ on the card")
+        order_same = np.array_equal(front["bins"], gv["bins"])
+        check(golden_top_bins_ok(front["bins"], front["votes"], gv["bins"], gv["scores"], c["top_k"]),
+              f"golden view {vi}: top bins differ")
+        hyps = decode_bin_poses(gv["bins"], *front["vote_arrays"], c["K"], c["radius"], depth_offset=depth_offset)
+        check(all(np.array_equal(np.array([h[k] for h in hyps]), gv[name]) for k, name in
+                  (("R", "hyp_R"), ("t", "hyp_t"), ("weight", "hyp_weight"), ("center_px", "hyp_center"))),
+              f"golden view {vi}: hypotheses differ on the card")
+        step = refine_lchf_poses(hyps, mesh, depth, c["K"], IcpConfig(max_iters=c["step_iters"]),
+                                 icp_seeds=c["icp_seeds"], device=dev)
+        d_step = refined_diff(step, [gv[f"step_{k}"] for k in ("R", "t", "fitness", "verify")])
+        check(within_fused_tol(d_step), f"golden view {vi}: the refine stage differs from JAX's: {d_step}")
+        full = refine_lchf_poses(hyps, mesh, depth, c["K"], None, icp_seeds=c["icp_seeds"], device=dev)
+        best = int(np.argmax(full[3] * 100.0 + np.maximum(full[2], 0.0)))
+        check(best == int(gv["best"]), f"golden view {vi}: best hypothesis {best}, JAX's {int(gv['best'])}")
+        err = pose_error.adi(full[0][best], full[1][best].reshape(3, 1), views[vi]["R"],
+                             np.asarray(views[vi]["t"]).reshape(3, 1), mesh, max_pts=1024, device=dev)
+        hits.append(err < threshold_mm)
+        check(hits[-1] == (float(gv["err"]) < threshold_mm), f"golden view {vi}: error {err} mm, JAX's {float(gv['err'])}")
+        out["views"].append({"argsort_order_as_golden": bool(order_same), "err_mm": err, "jax_err_mm": float(gv["err"]),
+                             "refine_2_iters_vs_jax": d_step,
+                             "refine_20_iters_vs_jax": refined_diff(full, [gv[k] for k in ("R", "t", "fitness", "verify")])})
+    out["recall"] = sum(hits) / len(hits)
+    check(out["recall"] == float(g["recall"]), f"golden recall {out['recall']}, JAX's {float(g['recall'])}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -1606,6 +2024,8 @@ def main() -> int:
         train_s, train_per_class = phase_train_synth(dev, bank_path)
         golden_launches = phase_synth_golden(dev)
         synth_launches, svc, synth_result = phase_synth(dev, bank_path, train_s)
+    lchf_launches, _ = phase_lchf(dev)
+    check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -1628,14 +2048,14 @@ def main() -> int:
     phase_profile("profile", lambda: detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0))
     phase_profile("profile_refine", lambda: run(rgb, dep, LOW_THRESHOLD))
     rgb_mc, dep_mc = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
-    phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD), n=3)
+    phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD))
     rgb_ms, dep_ms = torch.from_numpy(w_ms["rgb"]).to(dev), torch.from_numpy(w_ms["depth"].astype(np.int32)).to(dev)
-    phase_profile("profile_ms", lambda: ms["card"].match_arrays(rgb_ms, dep_ms, LOW_THRESHOLD), n=3)
+    phase_profile("profile_ms", lambda: ms["card"].match_arrays(rgb_ms, dep_ms, LOW_THRESHOLD))
     rgb_s, dep_s = synth_scene(dev)
-    phase_profile("profile_synth", lambda: svc.process_frame(rgb_s, dep_s), n=3)
+    phase_profile("profile_synth", lambda: svc.process_frame(rgb_s, dep_s))
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
                 "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
-                "synth": synth_launches}
+                "synth": synth_launches, "lchf": lchf_launches}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 

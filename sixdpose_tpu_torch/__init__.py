@@ -9,7 +9,10 @@ detect -> refine -> verify frames (``models.pipeline``, with batched ICP and
 verification in ``models.refine``); the rasterizer (``geometry``),
 render-trained banks (``models.train``), the pose-error metrics
 (``eval``), the serving entry point (``serving.PoseEstimationService``) and
-the synthetic accuracy benchmark (``benchmark``).  The Pallas local-refine
+the synthetic accuracy benchmark (``benchmark``), the Latent-Class Hough
+Forest path (``lchf``: patch features, forest training and prediction,
+Hough voting, bin decoding, ICP; its tool twin ``lchf.pipeline``) and the
+dataset I/O (``data``, ``utils.artifacts``).  The Pallas local-refine
 kernels are one hand-written CUDA kernel (``csrc/local_refine.cu``).
 """
 

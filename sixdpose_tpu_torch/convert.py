@@ -19,6 +19,10 @@ matchers (one class or several) from template lists, as the
 JAX package's ``MultiScaleDetector._feature_arrays`` and
 ``MultiScaleMultiClass._build`` do (``multiscale_bank_from_arrays`` moves
 them to a device).
+
+``lchf_tables_from_model`` builds the padded pivot-patch and per-tree node
+tables of the LCHF forest walk (``lchf.device.DeviceForest``) from an
+``LchfModel`` of either package, as the JAX ``DeviceForest`` does.
 """
 
 from __future__ import annotations
@@ -263,3 +267,87 @@ def multiscale_bank_from_arrays(a: dict, device) -> MultiScaleBank:
         pad_kb=a["pad_kb"],
     )
 
+
+
+@dataclasses.dataclass(frozen=True)
+class LchfPivotTables:
+    """The LCHF training patches as padded device tables (pivot side of the
+    similarity).
+
+    feats:  (N, F, 3) int32 (x, y, channel), zero past each patch's count.
+    valid:  (N, F) bool.
+    zrel:   (N, F) float32 relative depths.
+    center: (N,) float32 patch center depths.
+    shape:  (N, 2) int32 patch (height, width).
+    """
+
+    feats: torch.Tensor
+    valid: torch.Tensor
+    zrel: torch.Tensor
+    center: torch.Tensor
+    shape: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class LchfTreeTables:
+    """One tree's nodes: split pivot (N,) int64, threshold (N,) float32,
+    leaf flag (N,) bool, children (N, 2) int64."""
+
+    split: torch.Tensor
+    thresh: torch.Tensor
+    leaf: torch.Tensor
+    child: torch.Tensor
+
+
+@dataclasses.dataclass(frozen=True)
+class LchfTables:
+    """Pivot tables shared by every tree, one node table per tree, and the
+    number of walk steps (the trees' largest ``max_depth``)."""
+
+    pivots: LchfPivotTables
+    trees: Tuple[LchfTreeTables, ...]
+    max_depth: int
+
+
+def lchf_pivot_tables(patches: Sequence, device) -> LchfPivotTables:
+    """Pivot tables of ``PatchFeature``s (either package's) on ``device``."""
+    fmax = max(len(p.features) for p in patches)
+    n = len(patches)
+    feats = np.zeros((n, fmax, 3), np.int32)
+    valid = np.zeros((n, fmax), bool)
+    zrel = np.zeros((n, fmax), np.float32)
+    centers = np.zeros((n,), np.float32)
+    shapes = np.zeros((n, 2), np.int32)
+    for i, p in enumerate(patches):
+        f = len(p.features)
+        feats[i, :f] = p.features
+        valid[i, :f] = True
+        zrel[i, :f] = p.z_rel
+        centers[i] = p.center_dep
+        shapes[i] = p.shape
+    return LchfPivotTables(
+        feats=_to(feats, np.int32, device),
+        valid=_to(valid, np.bool_, device),
+        zrel=_to(zrel, np.float32, device),
+        center=_to(centers, np.float32, device),
+        shape=_to(shapes, np.int32, device),
+    )
+
+
+def lchf_tables_from_model(model, device) -> LchfTables:
+    """The forest walk's tables of an ``LchfModel`` (either package's) on
+    ``device``."""
+    trees = []
+    for tree in model.forest.trees:
+        nodes = tree.nodes
+        trees.append(LchfTreeTables(
+            split=_to([nd.split_feat_idx for nd in nodes], np.int64, device),
+            thresh=_to([nd.simi_thresh for nd in nodes], np.float32, device),
+            leaf=_to([nd.isleafnode for nd in nodes], np.bool_, device),
+            child=_to(np.array([nd.cnodes for nd in nodes], np.int64).reshape(-1, 2), np.int64, device),
+        ))
+    return LchfTables(
+        pivots=lchf_pivot_tables(model.patches, device),
+        trees=tuple(trees),
+        max_depth=max(t.max_depth for t in model.forest.trees),
+    )

@@ -60,7 +60,9 @@ def test_port_imports_without_jax():
     assert "chip_smoke" in out.stdout
     for name in ("models.multiclass", "models.multiscale", "models.pipeline", "ops.scale_proposal", "ops.similarity",
                  "convert", "synthetic", "geometry.transform", "geometry.view_sampler", "geometry.render", "eval.misc",
-                 "eval.pose_error", "eval.score", "eval.loc", "models.train", "utils.timing", "serving", "benchmark"):
+                 "eval.pose_error", "eval.score", "eval.loc", "models.train", "utils.timing", "serving", "benchmark",
+                 "lchf", "lchf.feature", "lchf.forest", "lchf.meanshift", "lchf.device", "lchf.model", "lchf.voting",
+                 "lchf.pose", "lchf.eval", "lchf.pipeline", "data", "data.inout", "data.datasets", "utils.artifacts"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 

@@ -79,6 +79,21 @@ def test_fast_atan2_bins_enumerated():
     assert float(np.abs(jdeg - tdeg).max()) < 1e-3
 
 
+def test_exact_atan2_bins_enumerated():
+    """Every integer Sobel pair (dx, dy) in [-1020, 1020]^2 (4.2M pairs):
+    the ``phase="exact"`` bins, round(deg * 16/360) & 15, identical to the
+    JAX function's.  The degrees themselves may differ by an ulp (two atan2
+    implementations); no pair lies close enough to a bin boundary for that
+    to move it."""
+    r = np.arange(-1020, 1021, dtype=np.float32)
+    gx, gy = np.meshgrid(r, r)
+    x, y = gx.ravel(), gy.ravel()
+    jdeg = np.asarray(jax.jit(JQ.exact_atan2_deg)(jnp.asarray(y), jnp.asarray(x)))
+    tdeg = TQ.exact_atan2_deg(_t(y), _t(x)).numpy()
+    k = np.float32(16.0 / 360.0)
+    np.testing.assert_array_equal(np.round(tdeg * k).astype(np.int32) & 15, np.round(jdeg * k).astype(np.int32) & 15)
+
+
 def test_exact_atan2(rng):
     x = rng.integers(-1020, 1021, 5000).astype(np.float32)
     y = rng.integers(-1020, 1021, 5000).astype(np.float32)
