@@ -36,7 +36,12 @@ Drives the port's main paths, and checks every result:
   pose_eval: the box, 320 x 240, f = 280, radius 500, 50-px patches at
   stride 10, 5 trees; 20 training views of its 420, 12 held-out views):
   training patches, the similarity matrix and the forest on the card, and
-  ``evaluate_pose_recall`` with the forest walk on the card.
+  ``evaluate_pose_recall`` with the forest walk on the card;
+- at the full width of a bin-picking frame for the JAX package's
+  segmentation path (``seg``: VGA RGB-D, f = 545, ``DaspConfig`` and
+  ``pose_estimation`` defaults; ``synthetic.bin_picking_scene``: the nine
+  meshes 450-600 mm away over a tilted floor): ``convex_cloud_seg`` and
+  each object's ``pose_estimation``.
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -117,7 +122,21 @@ non-zero:
    ICP per view) and launch counts; then the JAX golden of
    ``tools/torch_port_lchf_golden.py`` at 160 x 120.  One line
    ``{"lchf": {...}}``;
-17. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+17. seg: the bin-picking frame through ``convex_cloud_seg`` and one
+   ``pose_estimation`` per object (the segment covering most of its visible
+   mask, in mm, against 2048 points of its mesh's surface), the kernels'
+   launch counts set to 0 just before and read just after (the refine
+   kernel's must stay 0); the pixel maps, seeds, ALIC indices and means,
+   segments and every T and lcp equal to the port's CPU run (a spawned
+   worker) to the bit; the segment-sum and seeding kernels against their
+   plain versions at the frame's inputs and at random shapes; stage times
+   (pixel stage, seeds, ALIC by CUDA events; grouping and each registration
+   by the host clock), device-to-host reads per frame, segments, accepted
+   registrations and their ADI errors against the ground truth (reported,
+   not gated).  One line ``{"seg": {...}}``; then seg_golden: the card
+   against the JAX golden of ``tools/torch_port_seg_golden.py`` at
+   320 x 240;
+18. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -139,17 +158,19 @@ non-zero:
    Under ``synth``: the service's stage times per served frame, device ms
    per fused frame, render ms per 16-view batch and training seconds per
    class;
-18. profile, profile_refine, profile_mc, profile_ms, profile_synth:
+19. profile, profile_refine, profile_mc, profile_ms, profile_synth:
    torch.profiler's split of a B=1 match frame, of a B=1 detect+refine frame, of a fused
    multi-class frame, of a one-pass multi-scale frame and of one frame
    served by ``PoseEstimationService`` on a rendered benchmark scene into
    device kernels and host ops, and the device's idle share;
-19. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
-   source, the TPU kernels it replaces, its launches in the main paths'
-   phases (in all and per phase, ``synth_golden``, ``synth`` and ``lchf``
-   among them), its error against the plain version, and
-   its time beside the plain version's, the library call's and the bound
-   (at the bench B=1 call, the multi-class call and the multi-scale call);
+20. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+   source, the TPU kernels it replaces (the seg kernels replace none: the
+   JAX code they take the place of), its launches in the main paths'
+   phases (in all and per phase, ``synth_golden``, ``synth``, ``lchf`` and
+   ``seg`` among them), its error against the plain version, and its time
+   beside the plain version's, the library call's and the bound (the
+   refine kernel at the bench B=1 call, the multi-class call and the
+   multi-scale call; the seg kernels at the bin-picking frame's inputs);
    then the ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
@@ -210,8 +231,10 @@ from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
 from sixdpose_tpu_torch.ops import _build
+from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops import quantize as Q
+from sixdpose_tpu_torch.ops import segment_sum as SS
 from sixdpose_tpu_torch.ops import similarity as S
 from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
@@ -229,6 +252,16 @@ from sixdpose_tpu_torch.ops.similarity import (
     similarity_local_sparse,
     similarity_multiscale_matmul,
 )
+from sixdpose_tpu_torch.seg import DaspConfig as SegConfig
+from sixdpose_tpu_torch.seg import convex_cloud_seg as seg_convex_cloud_seg
+from sixdpose_tpu_torch.seg import frame_tensors as seg_frame_tensors
+from sixdpose_tpu_torch.seg import pose_estimation as seg_pose_estimation
+from sixdpose_tpu_torch.seg import superpixel_stage
+from sixdpose_tpu_torch.seg.dasp import alic_iterate as seg_alic
+from sixdpose_tpu_torch.seg.dasp import alic_pixel_table as seg_alic_pixel_table
+from sixdpose_tpu_torch.seg.dasp import convex_grouping as seg_convex_grouping
+from sixdpose_tpu_torch.seg.dasp import floyd_steinberg_seeds as seg_seeds
+from sixdpose_tpu_torch.seg.dasp import pixel_stage as seg_pixel_stage
 from sixdpose_tpu_torch.serving import PoseEstimationService
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1981,6 +2014,311 @@ def phase_lchf_golden(dev) -> dict:
     return out
 
 
+# -- the 3-D convex segmentation and registration path ----------------------
+
+# The bin-picking frame at full width: VGA, f = 545 (DaspConfig's default
+# camera), the nine meshes over a tilted floor (synthetic.bin_picking_scene);
+# DaspConfig and pose_estimation defaults.  The JAX golden is the same
+# recipe at 320 x 240 (tools/torch_port_seg_golden.py).
+SEG_IM = (640, 480)
+SEG_FOCAL = 545.0
+SEG_SEED_PAD = 128
+SEG_CPU_THREADS = 4  # the CPU reference's worker leaves the other cores to the card's host work
+SEG_REPS = 3
+# The serial scan's dependent chain per pixel (add, compare, subtract,
+# multiply, multiply in double precision), at an assumed 8 cycles each and
+# the H100 SXM's 1.98 GHz boost clock.
+FS_CHAIN_OPS, FS_CHAIN_CYCLES, H100_CLOCK_HZ = 5, 8, 1.98e9
+SEG_REPLACES = {
+    "segment_sum": "no TPU kernel: XLA's segment_sum at sixdpose_tpu/seg/dasp.py:307,310 and seg/slic.py:149,152",
+    "floyd_steinberg": "no TPU kernel: native_bridge.floyd_steinberg (host C++) at sixdpose_tpu/seg/dasp.py:154",
+}
+
+
+def seg_config(K: np.ndarray) -> SegConfig:
+    return SegConfig(focal_px=float(K[0, 0]), cx=float(K[0, 2]), cy=float(K[1, 2]))
+
+
+def covering_segment(segments: np.ndarray, mask: np.ndarray) -> int:
+    """The segment covering most of a visible mask (-1 when none does)."""
+    ids = segments[mask]
+    ids = ids[ids >= 0]
+    return int(np.bincount(ids).argmax()) if len(ids) else -1
+
+
+def seg_registrations(world: np.ndarray, segments: np.ndarray, masks, model_points, device) -> list:
+    """pose_estimation (defaults, method "auto") of each object's covering
+    segment in mm against its model cloud: [(segment, points, T, lcp)]."""
+    out = []
+    for mask, pts in zip(masks, model_points):
+        s = covering_segment(segments, mask)
+        cloud = world[segments == s] * 1000.0 if s >= 0 else np.zeros((0, 3), np.float32)
+        if len(cloud) == 0:
+            out.append((s, 0, np.zeros((4, 4)), 0.0))
+            continue
+        T, lcp = seg_pose_estimation(cloud, pts, device=device)
+        out.append((s, len(cloud), T, lcp))
+    return out
+
+
+def seg_outputs(rgb, depth, K, masks, model_points, device) -> dict:
+    """Every stage's output of the seg path on ``device``, as numpy: the
+    pixel maps, seeds, ALIC indices and means, segments (``convex_cloud_seg``'s
+    stages) and the registrations (a worker-process task on the CPU)."""
+    cfg = seg_config(K)
+    px, seeds, indices, sp = superpixel_stage(rgb, depth, cfg, SEG_SEED_PAD, device)
+    px = {k: v.cpu().numpy() for k, v in px.items()}
+    sp = {k: np.ascontiguousarray(v.cpu().numpy()) for k, v in sp.items()}
+    segments = seg_convex_grouping(indices.cpu().numpy(), sp["world"], sp["normal"], sp["num"], cfg)
+    return {"px": px, "seeds": seeds.cpu().numpy(), "indices": indices.cpu().numpy(), "sp": sp, "segments": segments,
+            "registrations": seg_registrations(px["world"], segments, masks, model_points, device)}
+
+
+def same_registrations(a: list, b: list) -> bool:
+    return len(a) == len(b) and all(x[0] == y[0] and x[1] == y[1] and np.array_equal(x[2], y[2]) and x[3] == y[3]
+                                    for x, y in zip(a, b))
+
+
+def count_syncs(fn) -> int:
+    """Device-to-host waits of one call: the warnings of
+    ``torch.cuda.set_sync_debug_mode("warn")``, one per synchronising op."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def segment_sum_checks(dev, pix: torch.Tensor, ids: torch.Tensor, s: int) -> dict:
+    """The segment-sum kernel against its plain version on the card (to
+    the bit) at the main path's inputs and at random shapes (an empty
+    segment, one segment, no rows), and timed at the main path's inputs
+    beside the plain version, one ``index_add_`` and the bytes bound."""
+    worst = 0.0
+    rng = np.random.default_rng(0)
+    cases = [(pix, ids, s)]
+    for n, c, segs in ((1000, 13, 40), (4097, 3, 1), (513, 7, 300), (0, 13, 5)):
+        seg = rng.integers(-1, segs + 1, n).astype(np.int32)
+        if segs > 3:
+            seg[seg == 3] = 4  # segment 3 stays empty
+        cases.append((torch.from_numpy(rng.normal(0, 3, (n, c)).astype(np.float32)).to(dev),
+                      torch.from_numpy(seg).to(dev), segs))
+    for v, i, n_seg in cases:
+        got = SS.segment_sum(v, i, n_seg)
+        want = SS.segment_sum_plain(v, i, n_seg)
+        check(torch.equal(got, want), f"segment_sum kernel differs from its plain version at {tuple(v.shape)}, {n_seg}")
+        worst = max(worst, float((got - want).abs().max()) if got.numel() else 0.0)
+    keep = (ids >= 0) & (ids < s)
+    safe = torch.where(keep, ids, torch.full_like(ids, s)).to(torch.int64)
+
+    def library():
+        return torch.zeros((s + 1, pix.shape[1]), dtype=torch.float32, device=dev).index_add_(0, safe, pix)[:s]
+
+    n_bytes = pix.numel() * 4 + ids.numel() * ids.element_size() + s * pix.shape[1] * 4
+    return {"max_abs_err": worst, "shape": [int(pix.shape[0]), int(pix.shape[1]), s],
+            "ms": cuda_ms(lambda: SS.segment_sum(pix, ids, s), reps=10),
+            "plain_ms": cuda_ms(lambda: SS.segment_sum_plain(pix, ids, s), reps=3),
+            "library_ms": cuda_ms(library, reps=10),
+            "library_max_abs_diff": float((library() - SS.segment_sum(pix, ids, s)).abs().max()),
+            "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def floyd_steinberg_checks(dev, density: torch.Tensor) -> dict:
+    """The seeding kernel against its plain version (the host scan) at the
+    main path's density and at odd widths, to the bit, and timed beside it
+    and the bytes bound; the serial chain's estimate beside them."""
+    rng = np.random.default_rng(1)
+    cases = [density] + [torch.from_numpy((rng.random(shape) * sc).astype(np.float32)).to(dev)
+                         for shape, sc in (((1, 9), 0.4), ((37, 51), 0.05), ((121, 163), 0.3), ((479, 641), 0.01))]
+    for d in cases:
+        got = FSK.floyd_steinberg(d).cpu().numpy()
+        want = FSK.floyd_steinberg_plain(d.cpu().numpy()).astype(np.float32)
+        check(np.array_equal(got, want), f"floyd_steinberg kernel differs from the host scan at {tuple(d.shape)}")
+    h, w = density.shape
+    n_seeds = int(FSK.floyd_steinberg(density).shape[0])
+    host = density.cpu().numpy()
+    n_bytes = h * w * 4 + n_seeds * 8 + 4
+    w0 = time.perf_counter()
+    FSK.floyd_steinberg_plain(host)
+    plain_ms = (time.perf_counter() - w0) * 1e3
+    return {"max_abs_err": 0.0, "shape": [h, w], "seeds": n_seeds,
+            "ms": cuda_ms(lambda: FSK.floyd_steinberg(density), reps=5),
+            "plain_ms": plain_ms, "plain_where": "host (numpy scan of the density read back)",
+            "library_ms": None, "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "chain_estimate_ms": h * w * FS_CHAIN_OPS * FS_CHAIN_CYCLES / H100_CLOCK_HZ * 1e3,
+            "chain_assumption": f"{FS_CHAIN_OPS} dependent double ops a pixel, {FS_CHAIN_CYCLES} cycles each, "
+                                f"{H100_CLOCK_HZ / 1e9} GHz"}
+
+
+def seg_stage_ms(rgb, depth, K, masks, model_points, dev) -> dict:
+    """Stage times of one frame on the card, medians of ``SEG_REPS``: pixel
+    stage, seeds (with the count's readback) and ALIC by CUDA events; the
+    grouping (host, with its readbacks) and each registration by the host
+    clock."""
+    cfg = seg_config(K)
+    rgb_t, depth_t = seg_frame_tensors(rgb, depth, dev)
+    runs = []
+    for _ in range(SEG_REPS):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        px = seg_pixel_stage(rgb_t, depth_t, cfg)
+        ev[1].record()
+        seeds = seg_seeds(px["density"])
+        ev[2].record()
+        n = seeds.shape[0]
+        s_pad = -(-n // SEG_SEED_PAD) * SEG_SEED_PAD
+        seed_xy = torch.zeros((s_pad, 2), dtype=torch.float32, device=dev)
+        seed_xy[:n] = seeds
+        indices, sp = seg_alic(px, seed_xy, torch.arange(s_pad, device=dev) < n, cfg, s_pad)
+        ev[3].record()
+        torch.cuda.synchronize()
+        w0 = time.perf_counter()
+        segments = seg_convex_grouping(indices.cpu().numpy(), *(np.ascontiguousarray(sp[k].cpu().numpy())
+                                                                for k in ("world", "normal", "num")), cfg)
+        group_ms = (time.perf_counter() - w0) * 1e3
+        world = px["world"].cpu().numpy()
+        reg_ms = []
+        for mask, pts in zip(masks, model_points):
+            w0 = time.perf_counter()
+            seg_registrations(world, segments, [mask], [pts], dev)  # reads its scores back
+            reg_ms.append((time.perf_counter() - w0) * 1e3)
+        runs.append({"pixel_stage": ev[0].elapsed_time(ev[1]), "seeds": ev[1].elapsed_time(ev[2]),
+                     "alic": ev[2].elapsed_time(ev[3]), "grouping_host": group_ms, "registrations": reg_ms})
+    med = {k: statistics.median(r[k] for r in runs) for k in ("pixel_stage", "seeds", "alic", "grouping_host")}
+    med["registration_each"] = [statistics.median(r["registrations"][i] for r in runs) for i in range(len(masks))]
+    med["registration_total"] = sum(med["registration_each"])
+    return med
+
+
+def phase_seg(dev) -> tuple:
+    """The bin-picking frame at full width on the card: ``convex_cloud_seg``,
+    then ``pose_estimation`` of each object's covering segment, with the
+    kernels' launch counts set to 0 just before and read just after; every
+    stage against the port's CPU run (a spawned worker) to the bit; the two
+    kernels against their plain versions; stage times; device-to-host
+    reads per frame.  Prints ``{"seg": ...}``."""
+    t0 = time.perf_counter()
+    sc = synthetic.bin_picking_scene(SEG_IM, SEG_FOCAL, device=dev)
+    rgb, depth, K, masks, pts = sc["rgb"], sc["depth"], sc["K"], sc["masks"], sc["model_points"]
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(SEG_CPU_THREADS,))
+    try:
+        cpu_run = pool.submit(seg_outputs, rgb, depth, K, masks, pts, "cpu")
+        card = seg_outputs(rgb, depth, K, masks, pts, dev)  # also the warm-up of the main path
+        torch.cuda.synchronize()
+        # The main path, through the entry points a user calls.
+        LR.similarity_local_sparse_cuda.launches = 0
+        SS.segment_sum.launches = 0
+        FSK.floyd_steinberg.launches = 0
+        w0 = time.perf_counter()
+        segments, world, normal = seg_convex_cloud_seg(rgb, depth, K, device=dev)
+        regs = seg_registrations(world, segments, masks, pts, dev)
+        frame_s = time.perf_counter() - w0
+        launches = {"local_refine": LR.similarity_local_sparse_cuda.launches, "segment_sum": SS.segment_sum.launches,
+                    "floyd_steinberg": FSK.floyd_steinberg.launches}
+        check(launches["local_refine"] == 0, f"the seg path launched the refine kernel {launches['local_refine']} times")
+        check(launches["segment_sum"] > 0 and launches["floyd_steinberg"] > 0, f"a seg kernel was not launched: {launches}")
+        check(np.array_equal(card["segments"], segments), "convex_cloud_seg differs from its stages on the card")
+        check(same_registrations(card["registrations"], regs), "registrations differ between two card runs")
+        syncs = count_syncs(lambda: seg_registrations(world, seg_convex_cloud_seg(rgb, depth, K, device=dev)[0],
+                                                      masks, pts, dev))
+        cpu = cpu_run.result()
+    finally:
+        pool.shutdown(cancel_futures=True)
+    for k in card["px"]:
+        check(np.array_equal(card["px"][k], cpu["px"][k]), f"pixel stage {k} on the card differs from the CPU")
+    check(np.array_equal(card["seeds"], cpu["seeds"]), "seeds on the card differ from the CPU")
+    check(np.array_equal(card["indices"], cpu["indices"]), "ALIC indices on the card differ from the CPU")
+    for k in card["sp"]:
+        check(np.array_equal(card["sp"][k], cpu["sp"][k]), f"superpixel {k} on the card differs from the CPU")
+    check(np.array_equal(card["segments"], cpu["segments"]), "segments on the card differ from the CPU")
+    check(same_registrations(card["registrations"], cpu["registrations"]), "registrations on the card differ from the CPU")
+
+    # The kernels at the main path's inputs, and at random shapes.
+    cfg = seg_config(K)
+    rgb_t, depth_t = seg_frame_tensors(rgb, depth, dev)
+    px = seg_pixel_stage(rgb_t, depth_t, cfg)
+    ids = torch.from_numpy(card["indices"].reshape(-1)).to(dev)
+    s_pad = int(card["sp"]["num"].shape[0])
+    kernels = {"segment_sum": segment_sum_checks(dev, seg_alic_pixel_table(px), ids, s_pad),
+               "floyd_steinberg": floyd_steinberg_checks(dev, px["density"])}
+    stages = seg_stage_ms(rgb, depth, K, masks, pts, dev)
+    models = TB.make_models()
+    accepted = []
+    for i, (s, n, T, lcp) in enumerate(regs):
+        if lcp > 0.5:
+            mesh = models[sc["obj_ids"][i]]
+            accepted.append({"object": sc["obj_ids"][i], "lcp": lcp,
+                             "adi_mm": pose_error.adi(T[:3, :3], T[:3, 3:], sc["R"][i], sc["t"][i].reshape(3, 1),
+                                                      mesh, device=dev),
+                             "diameter_mm": model_diameter(mesh["pts"])})
+    line = {
+        "frame": {"im": list(SEG_IM), "focal": SEG_FOCAL, "objects": sc["obj_ids"],
+                  "visible_px": [int(m.sum()) for m in masks]},
+        "seeds": int(len(card["seeds"])), "superpixels_padded": s_pad,
+        "largest_superpixel_px": int(card["sp"]["num"].max()), "segments": int(segments.max() + 1),
+        "registrations": [{"object": o, "segment": r[0], "points": r[1], "lcp": r[3]}
+                          for o, r in zip(sc["obj_ids"], regs)],
+        "accepted": len(accepted), "accepted_adi": accepted,
+        "frame_s_host": frame_s, "stage_ms": stages, "device_to_host_reads_per_frame": syncs,
+        "launches": launches, "kernels": kernels,
+        "card_equals_cpu": True,
+    }
+    print(json.dumps({"seg": line}), flush=True)
+    emit("seg", t0, **line)
+    return launches, kernels
+
+
+def phase_seg_golden(dev) -> dict:
+    """The card against the JAX golden of ``tools/torch_port_seg_golden.py``
+    (the bin-picking frame at 320 x 240): seeds, ALIC indices and means,
+    segments to the bit (superpixel normals within 1e-6: the pixel normals
+    are not JAX's bits), ALIC from JAX's pixel normals to the bit, and every
+    registration's lcp and accept decision, R within 1e-5, t within 1e-3 mm."""
+    g = dict(np.load(os.path.join(TESTDATA, "seg_golden.npz")))
+    cfg = seg_config(g["K"])
+    px, seeds, indices, sp = superpixel_stage(g["rgb"], g["depth"], cfg, int(g["seed_pad"]), dev)
+    check(np.array_equal(seeds.cpu().numpy(), g["seeds"]), "golden seeds differ on the card")
+    check(np.array_equal(indices.cpu().numpy(), g["indices"].astype(np.int32)), "golden ALIC indices differ on the card")
+    sp = {k: np.ascontiguousarray(v.cpu().numpy()) for k, v in sp.items()}
+    for k in sp:
+        if k == "normal":
+            check(np.abs(sp[k] - g["sp_normal"]).max() <= 1e-6, "golden superpixel normals differ on the card")
+        else:
+            check(np.array_equal(sp[k], g[f"sp_{k}"]), f"golden superpixel {k} differs on the card")
+    segments = seg_convex_grouping(indices.cpu().numpy(), sp["world"], sp["normal"], sp["num"], cfg)
+    check(np.array_equal(segments, g["segments"].astype(np.int64)), "golden segments differ on the card")
+    n = len(g["seeds"])
+    s_pad = -(-n // int(g["seed_pad"])) * int(g["seed_pad"])
+    seed_xy = torch.zeros((s_pad, 2), dtype=torch.float32, device=dev)
+    seed_xy[:n] = torch.from_numpy(g["seeds"]).to(dev)
+    idx_j, sp_j = seg_alic(dict(px, normal=torch.from_numpy(g["px_normal"]).to(dev)), seed_xy,
+                           torch.arange(s_pad, device=dev) < n, cfg, s_pad)
+    check(np.array_equal(idx_j.cpu().numpy(), g["indices"].astype(np.int32)), "golden ALIC from JAX's normals differs")
+    for k in sp_j:
+        check(np.array_equal(sp_j[k].cpu().numpy(), g[f"sp_{k}"]), f"golden superpixel {k} from JAX's normals differs")
+    models = TB.make_models()
+    world = px["world"].cpu().numpy()
+    worst = {"R": 0.0, "t_mm": 0.0}
+    for i, obj in enumerate(g["obj_ids"]):
+        s = int(g["reg_segment"][i])
+        cloud = world[segments == s] * 1000.0
+        check(len(cloud) == int(g["reg_points"][i]), f"golden segment of {obj} has {len(cloud)} points")
+        T, lcp = seg_pose_estimation(cloud, synthetic.mesh_surface_points(models[str(obj)], seed=i), device=dev)
+        want = float(g["reg_lcp"][i])
+        check(lcp == want and (lcp > 0.5) == (want > 0.5), f"golden registration of {obj}: lcp {lcp}, JAX {want}")
+        worst["R"] = max(worst["R"], float(np.abs(T[:3, :3] - g["reg_T"][i][:3, :3]).max()))
+        worst["t_mm"] = max(worst["t_mm"], float(np.abs(T[:3, 3] - g["reg_T"][i][:3, 3]).max()))
+    check(worst["R"] <= 1e-5 and worst["t_mm"] <= 1e-3, f"golden registrations beyond tolerance: {worst}")
+    return {"seeds": n, "segments": int(segments.max() + 1), "registrations": len(g["obj_ids"]),
+            "accepted": int((g["reg_lcp"] > 0.5).sum()), "worst_vs_jax": worst}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2026,6 +2364,9 @@ def main() -> int:
         synth_launches, svc, synth_result = phase_synth(dev, bank_path, train_s)
     lchf_launches, _ = phase_lchf(dev)
     check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
+    seg_launches, seg_kernels = phase_seg(dev)
+    t0 = time.perf_counter()
+    emit("seg_golden", t0, **phase_seg_golden(dev))
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -2055,7 +2396,7 @@ def main() -> int:
     phase_profile("profile_synth", lambda: svc.process_frame(rgb_s, dep_s))
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
                 "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
-                "synth": synth_launches, "lchf": lchf_launches}
+                "synth": synth_launches, "lchf": lchf_launches, "seg": seg_launches["local_refine"]}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 
@@ -2080,7 +2421,18 @@ def main() -> int:
                                             "bound_ms": ms_kernel["bound"]["bound_ms"],
                                             "bound_by": ms_kernel["bound"]["bound_by"],
                                             "library_ms": ms_kernel["library_grouped_conv_ms"]},
-    }]}), flush=True)
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": f"sixdpose_tpu_torch/csrc/{name}.cu",
+        "replaces": SEG_REPLACES[name],
+        "launches": seg_launches[name],
+        "launches_by_phase": {"seg": seg_launches[name]},
+        "exact_vs_plain": True,
+        **{k: seg_kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        "at": {k: v for k, v in seg_kernels[name].items()
+               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+    } for name in ("segment_sum", "floyd_steinberg")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -23,6 +23,9 @@ them to a device).
 ``lchf_tables_from_model`` builds the padded pivot-patch and per-tree node
 tables of the LCHF forest walk (``lchf.device.DeviceForest``) from an
 ``LchfModel`` of either package, as the JAX ``DeviceForest`` does.
+
+The segmentation path (``seg/``) has nothing to convert: it has no learned
+parameters, and its model clouds are numpy arrays in both packages.
 """
 
 from __future__ import annotations

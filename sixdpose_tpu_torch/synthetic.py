@@ -22,6 +22,11 @@
 - ``planted_scene_scaled``: the planted scene with object 0 resized to a
   given scale and set at a given depth, for the multi-scale golden
   (``tools/torch_port_ms_golden.py``).
+- ``bin_picking_scene``: the segmentation path's frame: the benchmark's
+  nine meshes at random poses 450-600 mm away over a tilted floor, with
+  each object's visible mask and a sample of each mesh's surface (the
+  registration's model clouds); ``tools/torch_port_seg_golden.py`` records
+  what the JAX package's ``seg`` makes of it at 320 x 240.
 """
 
 from __future__ import annotations
@@ -359,3 +364,67 @@ def planted_scene_scaled(x: int, y: int, scale: float, depth_mm: int, seed: int 
     rgb[y : y + s_h, x : x + s_w][m] = obj[m]
     depth[y : y + s_h, x : x + s_w][m] = (depth_mm - height[m]).astype(np.uint16)
     return rgb, depth
+
+
+# The bin-picking frame of the segmentation path (``bin_picking_scene``):
+# objects 450-600 mm away within +-120 mm of the axis, and a floor plane
+# tilted from 700 mm at the bottom row back by 0.15 mm per VGA row.
+BIN_DEPTH_RANGE = (450.0, 600.0)
+BIN_SPREAD_MM = 120.0
+BIN_SURFACE_POINTS = 2048
+
+
+def mesh_surface_points(mesh: dict, n: int = BIN_SURFACE_POINTS, seed: int = 0) -> np.ndarray:
+    """(n, 3) float64 points (mm) drawn uniformly over a mesh's surface:
+    faces by area, then barycentric coordinates, from ``seed``."""
+    pts = np.asarray(mesh["pts"], np.float64)
+    tri = pts[np.asarray(mesh["faces"])]
+    area = 0.5 * np.linalg.norm(np.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0]), axis=1)
+    rng = np.random.default_rng(seed)
+    face = rng.choice(len(tri), n, p=area / area.sum())
+    u, v = rng.random(n), rng.random(n)
+    flip = u + v > 1.0
+    u[flip], v[flip] = 1.0 - u[flip], 1.0 - v[flip]
+    t = tri[face]
+    return t[:, 0] + u[:, None] * (t[:, 1] - t[:, 0]) + v[:, None] * (t[:, 2] - t[:, 0])
+
+
+def bin_picking_scene(im_size: Tuple[int, int] = (640, 480), focal: float = 545.0, seed: int = 0, device=None) -> dict:
+    """The nine meshes of ``benchmark.make_models`` placed by
+    ``benchmark.make_scene`` (``np.random.default_rng(seed)``, depth range
+    ``BIN_DEPTH_RANGE``, spread ``BIN_SPREAD_MM``) over a tilted floor where
+    the render is empty, rendered on ``device``.
+
+    Returns dict of numpy arrays: rgb (H, W, 3) uint8, depth (H, W) uint16
+    mm, K, the objects' ids, R, t, visible masks (O, H, W) bool (the pixels
+    each object's depth won), and model clouds (surface samples, mm).
+    """
+    from sixdpose_tpu_torch import benchmark as TB
+    from sixdpose_tpu_torch.geometry.render import render
+
+    w, h = im_size
+    K = np.array([[focal, 0, w / 2.0], [0, focal, h / 2.0], [0, 0, 1]])
+    models = TB.make_models()
+    rgb, depth, gts = TB.make_scene(models, K, im_size, np.random.default_rng(seed), depth_range=BIN_DEPTH_RANGE,
+                                    spread_mm=BIN_SPREAD_MM, device=device)
+    # Which object won each pixel, by make_scene's own merge rule.
+    near = np.zeros((h, w), np.float32)
+    owner = np.full((h, w), -1, np.int64)
+    for i, g in enumerate(gts):
+        d_i = render(models[g["obj_id"]], im_size, K, g["R"], g["t"], mode="depth", device=device).cpu().numpy()
+        closer = (d_i > 0) & ((near == 0) | (d_i < near))
+        near[closer] = d_i[closer]
+        owner[closer] = i
+    rows = np.arange(h, dtype=np.float64)[:, None] * (480.0 / h)
+    floor = (700.0 + 0.15 * (480.0 - rows)) * np.ones((1, w))
+    depth = np.where(depth > 0, depth, floor.astype(np.uint16))
+    return {
+        "rgb": rgb,
+        "depth": depth,
+        "K": K,
+        "obj_ids": [g["obj_id"] for g in gts],
+        "R": np.stack([g["R"] for g in gts]),
+        "t": np.stack([np.asarray(g["t"], np.float64).reshape(3) for g in gts]),
+        "masks": np.stack([owner == i for i in range(len(gts))]),
+        "model_points": [mesh_surface_points(models[g["obj_id"]], seed=i) for i, g in enumerate(gts)],
+    }

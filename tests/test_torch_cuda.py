@@ -514,3 +514,104 @@ def test_run_benchmark_on_card_matches_jax_golden(cuda, tmp_path):
     assert {k: got[k] for k in ("targets", "hits", "hits_vsd", "per_object")} == {
         k: want[k] for k in ("targets", "hits", "hits_vsd", "per_object")}
     assert got["device_ms_per_frame"] > 0
+
+
+# -- the segmentation path: ordered segment sums, seeding, DASP, registration --
+
+
+@pytest.mark.parametrize("n,c,s", [(1000, 13, 40), (4097, 3, 1), (513, 7, 300), (0, 2, 5), (100, 1, 0)])
+def test_segment_sum_kernel_matches_plain(cuda, n, c, s):
+    """The kernel equals its plain version to the bit (ids out of range
+    dropped; empty segments, one segment, no rows, no segments)."""
+    from sixdpose_tpu_torch.ops import segment_sum as SS
+
+    rng = np.random.default_rng(n + s)
+    vals = torch.from_numpy(rng.normal(0, 3, (n, c)).astype(np.float32))
+    seg = torch.from_numpy(rng.integers(-2, s + 2, n).astype(np.int32))
+    if s > 3:
+        seg[seg == 3] = 4  # segment 3 stays empty
+    want = SS.segment_sum(vals, seg, s)
+    before = SS.segment_sum.launches
+    got = SS.segment_sum(vals.to(cuda), seg.to(cuda), s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert SS.segment_sum.launches == before + (1 if s * c else 0)
+
+
+@pytest.mark.parametrize("h,w,scale", [(1, 1, 0.7), (1, 9, 0.4), (7, 1, 0.9), (37, 51, 0.05), (120, 161, 0.3),
+                                       (480, 640, 0.01)])
+def test_floyd_steinberg_kernel_matches_plain(cuda, h, w, scale):
+    """The one-thread scan equals the host scan: the same seeds in order."""
+    from sixdpose_tpu_torch.ops import floyd_steinberg as FS
+
+    density = torch.from_numpy((np.random.default_rng(h * w).random((h, w)) * scale).astype(np.float32))
+    want = FS.floyd_steinberg(density)
+    before = FS.floyd_steinberg.launches
+    got = FS.floyd_steinberg(density.to(cuda))
+    assert torch.equal(got.cpu(), want)
+    assert FS.floyd_steinberg.launches == before + 1
+
+
+def _seg_scene():
+    """Two flat boxes on a tilted ground plane, 160x120, f=200."""
+    h, w = 120, 160
+    yy = np.mgrid[0:h, 0:w][0]
+    depth = (900 + (h - yy) * 3).astype(np.uint16)
+    depth[40:80, 20:60] = 700
+    depth[30:70, 95:135] = 800
+    rgb = np.full((h, w, 3), 120, np.uint8)
+    rgb[40:80, 20:60] = (200, 60, 60)
+    rgb[30:70, 95:135] = (60, 200, 60)
+    return rgb, depth, np.array([[200.0, 0, 80], [0, 200.0, 60], [0, 0, 1]])
+
+
+def test_convex_cloud_seg_on_card_equals_cpu(cuda):
+    from sixdpose_tpu_torch.ops import floyd_steinberg as FS
+    from sixdpose_tpu_torch.ops import segment_sum as SS
+    from sixdpose_tpu_torch.seg import DaspConfig, convex_cloud_seg, superpixel_stage
+
+    rgb, depth, K = _seg_scene()
+    cfg = DaspConfig(focal_px=200.0, cx=80, cy=60, radius=0.03)
+    card = superpixel_stage(rgb, depth, cfg, device=cuda)
+    cpu = superpixel_stage(rgb, depth, cfg, device="cpu")
+    for k in card[0]:
+        assert torch.equal(card[0][k].cpu(), cpu[0][k]), k
+    assert torch.equal(card[1].cpu(), cpu[1]) and torch.equal(card[2].cpu(), cpu[2])
+    for k in card[3]:
+        assert torch.equal(card[3][k].cpu(), cpu[3][k]), k
+    before = (FS.floyd_steinberg.launches, SS.segment_sum.launches)
+    seg_card = convex_cloud_seg(rgb, depth, K, cfg, device=cuda)
+    assert (FS.floyd_steinberg.launches, SS.segment_sum.launches) == (before[0] + 1, before[1] + cfg.iterations)
+    seg_cpu = convex_cloud_seg(rgb, depth, K, cfg, device="cpu")
+    for a, b in zip(seg_card, seg_cpu):
+        assert np.array_equal(a, b)
+
+
+def test_pose_estimation_on_card_equals_cpu(cuda):
+    from sixdpose_tpu_torch.geometry.transform import rotation_matrix
+    from sixdpose_tpu_torch.seg import pose_estimation
+
+    rng = np.random.default_rng(0)
+    base = rng.uniform(0, 40, (400, 3))
+    base[:200, 2] = 0
+    base[200:, 0] = 0
+    scene = base @ rotation_matrix(0.6, [0.2, 1, 0.3])[:3, :3].T + np.array([30.0, -20.0, 55.0])
+    for kw in (dict(delta=2.0, num_hyp=2048, seed=1), dict(delta=4.0, method="4pcs", min_lcp=0.2, seed=3)):
+        T_card, lcp_card = pose_estimation(scene, base, device=cuda, **kw)
+        T_cpu, lcp_cpu = pose_estimation(scene, base, device="cpu", **kw)
+        assert lcp_card == lcp_cpu and np.array_equal(T_card, T_cpu), kw
+
+
+def test_slic_and_asp_on_card_equal_cpu(cuda):
+    from sixdpose_tpu_torch.seg import superpixels_asp, superpixels_slic
+
+    rng = np.random.default_rng(3)
+    rgb = rng.integers(0, 255, (64, 96, 3), dtype=np.uint8)
+    density = np.full((64, 96), 6.0 / (64 * 96), np.float32)
+    density[:, 48:] *= 8
+    for fn, args in ((superpixels_slic, (rgb, 24)), (superpixels_asp, (rgb, density))):
+        a, sa = fn(*args, device=cuda)
+        b, sb = fn(*args, device="cpu")
+        assert np.array_equal(a, b)
+        for k in sa:
+            assert np.array_equal(sa[k], sb[k]), k

@@ -62,7 +62,8 @@ def test_port_imports_without_jax():
                  "convert", "synthetic", "geometry.transform", "geometry.view_sampler", "geometry.render", "eval.misc",
                  "eval.pose_error", "eval.score", "eval.loc", "models.train", "utils.timing", "serving", "benchmark",
                  "lchf", "lchf.feature", "lchf.forest", "lchf.meanshift", "lchf.device", "lchf.model", "lchf.voting",
-                 "lchf.pose", "lchf.eval", "lchf.pipeline", "data", "data.inout", "data.datasets", "utils.artifacts"):
+                 "lchf.pose", "lchf.eval", "lchf.pipeline", "data", "data.inout", "data.datasets", "utils.artifacts",
+                 "seg", "seg.dasp", "seg.registration", "seg.slic", "ops.segment_sum", "ops.floyd_steinberg"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 
