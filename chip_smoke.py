@@ -129,7 +129,12 @@ non-zero:
    kernel's must stay 0); the pixel maps, seeds, ALIC indices and means,
    segments and every T and lcp equal to the port's CPU run (a spawned
    worker) to the bit; the segment-sum and seeding kernels against their
-   plain versions at the frame's inputs and at random shapes; stage times
+   plain versions (and the segment-sum layout against ``csr_layout``) at
+   the frame's inputs and at edge cases (the longest chain, every id out
+   of range, S past 1,024; dense seeds, values exactly one half, the widest
+   width); the segment sums timed whole, as layout and as sums, beside
+   ``index_add_``; the seeding scan beside the chain probe (the scan's
+   per-pixel chain alone in one thread, its measured bound); stage times
    (pixel stage, seeds, ALIC by CUDA events; grouping and each registration
    by the host clock), device-to-host reads per frame, segments, accepted
    registrations and their ADI errors against the ground truth (reported,
@@ -170,8 +175,10 @@ non-zero:
    ``seg`` among them), its error against the plain version, and its time
    beside the plain version's, the library call's and the bound (the
    refine kernel at the bench B=1 call, the multi-class call and the
-   multi-scale call; the seg kernels at the bin-picking frame's inputs);
-   then the ``nvidia-smi`` line again.
+   multi-scale call; the seg kernels at the bin-picking frame's inputs,
+   with the segment sums' ``split_ms`` and the scan's measured
+   ``chain_bound_ms``), and each kernel's ``ptxas`` (registers, shared
+   memory, spills); then the ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
 the script prints no result and exits 2.
@@ -182,6 +189,7 @@ from __future__ import annotations
 import json
 import multiprocessing
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -294,6 +302,40 @@ def emit(phase: str, t0: float, **fields) -> None:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
+
+
+def ptxas_summary(log: str) -> list:
+    """Per kernel function in ``nvcc -Xptxas -v``'s log: registers, static
+    shared memory, stack frame and spill bytes (names demangled where
+    ``c++filt`` is on the PATH)."""
+    out, cur = [], None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = {"function": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)), spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            cur["smem_static_bytes"] = int(sm.group(1)) if sm else 0
+    if out and shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(f["function"] for f in out), capture_output=True,
+                               text=True).stdout.splitlines()
+        for f, name in zip(out, names):
+            f["function"] = name
+    return out
+
+
+def sm_clock_mhz() -> str:
+    return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
+                          capture_output=True, text=True).stdout.strip()
 
 
 def nvidia_smi() -> str:
@@ -1049,6 +1091,34 @@ def cuda_ms(fn, reps: int, inner: int = 1) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b) / inner)
     return statistics.median(times)
+
+
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call to enqueue ``fn`` (calls back to back, no
+    wait for the device between them)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / n * 1e6
+
+
+def device_us_by_kernel(fn, n: int = 20) -> dict:
+    """torch.profiler's device microseconds per call of ``fn``, by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {r.key[:80]: r.self_device_time_total / n for r in prof.key_averages()
+            if r.device_type == DeviceType.CUDA}
 
 
 def graph_ms(fn, reps: int, inner: int) -> float:
@@ -2025,10 +2095,6 @@ SEG_FOCAL = 545.0
 SEG_SEED_PAD = 128
 SEG_CPU_THREADS = 4  # the CPU reference's worker leaves the other cores to the card's host work
 SEG_REPS = 3
-# The serial scan's dependent chain per pixel (add, compare, subtract,
-# multiply, multiply in double precision), at an assumed 8 cycles each and
-# the H100 SXM's 1.98 GHz boost clock.
-FS_CHAIN_OPS, FS_CHAIN_CYCLES, H100_CLOCK_HZ = 5, 8, 1.98e9
 SEG_REPLACES = {
     "segment_sum": "no TPU kernel: XLA's segment_sum at sixdpose_tpu/seg/dasp.py:307,310 and seg/slic.py:149,152",
     "floyd_steinberg": "no TPU kernel: native_bridge.floyd_steinberg (host C++) at sixdpose_tpu/seg/dasp.py:154",
@@ -2094,51 +2160,110 @@ def count_syncs(fn) -> int:
     return sum("synchroniz" in str(w.message) for w in caught)
 
 
+def segment_sum_cases(rng) -> list:
+    """(name, vals (N, C), ids, S) edge cases of the segment-sum kernel
+    (``tests/test_torch_cuda.py`` holds the same): the longest chain (one
+    segment holding every row), C = 1 and 13, rows that are not a multiple
+    of the layout's tile, every id out of range, S above 1,024 (counters past
+    48 KB of shared memory, and at the limit), an empty segment, one
+    segment, nearly a segment a row, no rows."""
+    cases = []
+    for name, n, c, s in (("one_segment_every_row", 60_000, 13, 1), ("c1", 5000, 1, 64),
+                          ("rows_not_a_tile_multiple", 8 * 1024 + 1, 13, 77), ("short", 31, 3, 5),
+                          ("every_id_out_of_range", 3000, 13, 40), ("s_above_1024", 20_000, 13, 3000),
+                          ("s_past_48kb_of_counters", 50_000, 2, 20_000), ("s_at_the_limit", 70_000, 1, SS.MAX_SEGMENTS),
+                          ("empty_segment", 1000, 13, 40), ("one_segment", 4097, 3, 1), ("dense_segments", 513, 7, 300),
+                          ("no_rows", 0, 13, 5)):
+        vals = (rng.normal(0, 1, (n, c)) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+        if name == "one_segment_every_row":
+            ids = np.zeros(n, np.int64)
+        elif name == "every_id_out_of_range":
+            ids = np.where(rng.random(n) < 0.5, -1 - rng.integers(0, 5, n), s + rng.integers(0, 5, n))
+        else:
+            ids = rng.integers(-1, s + 1, n)
+            if name == "empty_segment":
+                ids[ids == 3] = 4
+        cases.append((name, vals, ids.astype(np.int32 if c == 1 else np.int64), s))
+    return cases
+
+
 def segment_sum_checks(dev, pix: torch.Tensor, ids: torch.Tensor, s: int) -> dict:
     """The segment-sum kernel against its plain version on the card (to
-    the bit) at the main path's inputs and at random shapes (an empty
-    segment, one segment, no rows), and timed at the main path's inputs
-    beside the plain version, one ``index_add_`` and the bytes bound."""
+    the bit), and its layout against the plain layout (``csr_layout``), at
+    the main path's inputs and at the edge cases; timed at the main path's
+    inputs: the whole call, the layout alone and the sums alone, beside the
+    plain version, one ``index_add_`` and the bytes bound."""
     worst = 0.0
-    rng = np.random.default_rng(0)
-    cases = [(pix, ids, s)]
-    for n, c, segs in ((1000, 13, 40), (4097, 3, 1), (513, 7, 300), (0, 13, 5)):
-        seg = rng.integers(-1, segs + 1, n).astype(np.int32)
-        if segs > 3:
-            seg[seg == 3] = 4  # segment 3 stays empty
-        cases.append((torch.from_numpy(rng.normal(0, 3, (n, c)).astype(np.float32)).to(dev),
-                      torch.from_numpy(seg).to(dev), segs))
-    for v, i, n_seg in cases:
+    cases = [("frame", pix, ids, s)] + [(name, torch.from_numpy(v).to(dev), torch.from_numpy(i).to(dev), n_seg)
+                                        for name, v, i, n_seg in segment_sum_cases(np.random.default_rng(0))]
+    for name, v, i, n_seg in cases:
         got = SS.segment_sum(v, i, n_seg)
         want = SS.segment_sum_plain(v, i, n_seg)
-        check(torch.equal(got, want), f"segment_sum kernel differs from its plain version at {tuple(v.shape)}, {n_seg}")
+        check(torch.equal(got, want), f"segment_sum kernel differs from its plain version at {name}")
         worst = max(worst, float((got - want).abs().max()) if got.numel() else 0.0)
+        order, starts, counts = SS.csr_layout(i, n_seg)
+        got_order, got_starts = SS.segment_layout(i, n_seg)
+        kept = int(counts.sum())
+        check(int(got_starts[-1]) == kept and torch.equal(got_order[:kept].long(), order[:kept])
+              and torch.equal(got_starts[:-1].long(), starts), f"segment_layout differs from csr_layout at {name}")
     keep = (ids >= 0) & (ids < s)
     safe = torch.where(keep, ids, torch.full_like(ids, s)).to(torch.int64)
 
     def library():
         return torch.zeros((s + 1, pix.shape[1]), dtype=torch.float32, device=dev).index_add_(0, safe, pix)[:s]
 
+    order, starts = SS.segment_layout(ids, s)
     n_bytes = pix.numel() * 4 + ids.numel() * ids.element_size() + s * pix.shape[1] * 4
+    whole = lambda: SS.segment_sum(pix, ids, s)  # noqa: E731
+    # The whole call and index_add_ in turns, so that a drift of the host's
+    # speed (both are bound by the host's launches) falls on both alike.
+    turns = [(cuda_ms(whole, reps=10), cuda_ms(library, reps=10)) for _ in range(4)]
     return {"max_abs_err": worst, "shape": [int(pix.shape[0]), int(pix.shape[1]), s],
-            "ms": cuda_ms(lambda: SS.segment_sum(pix, ids, s), reps=10),
+            "ids": str(ids.dtype), "edge_cases": [c[0] for c in cases[1:]],
+            "ms": statistics.median(t[0] for t in turns), "turns_ms_whole_library": turns,
+            "split_ms": {"layout": cuda_ms(lambda: SS.segment_layout(ids, s), reps=20),
+                         "sums": cuda_ms(lambda: SS.segment_sums(pix, order, starts), reps=20),
+                         "whole": cuda_ms(whole, reps=20),
+                         "whole_graph": graph_ms(whole, reps=5, inner=20),
+                         "library_graph": graph_ms(library, reps=5, inner=20),
+                         "device_us_by_kernel": device_us_by_kernel(whole),
+                         "host_us": {"whole": host_us(whole), "layout": host_us(lambda: SS.segment_layout(ids, s)),
+                                     "sums": host_us(lambda: SS.segment_sums(pix, order, starts)),
+                                     "library": host_us(library),
+                                     "torch_empty": host_us(lambda: torch.empty((s, pix.shape[1]), device=dev))}},
             "plain_ms": cuda_ms(lambda: SS.segment_sum_plain(pix, ids, s), reps=3),
-            "library_ms": cuda_ms(library, reps=10),
+            "library_ms": statistics.median(t[1] for t in turns),
             "library_max_abs_diff": float((library() - SS.segment_sum(pix, ids, s)).abs().max()),
             "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
 
 
+def floyd_steinberg_cases(rng) -> list:
+    """(name, density) edge cases of the seeding kernel
+    (``tests/test_torch_cuda.py`` holds the same): dense seeds, values
+    exactly one half, H = 1 and W = 1, odd heights and widths, the widest
+    width the kernel's shared memory holds."""
+    cases = [(f"{h}x{w}@{sc}", (rng.random((h, w)) * sc).astype(np.float32))
+             for h, w, sc in ((1, 9, 0.4), (37, 51, 0.05), (121, 163, 0.3), (479, 641, 0.01), (64, 80, 0.95),
+                              (1, 700, 0.95), (33, 47, 1.0), (5, 301, 0.02), (9, 1, 0.6), (1, 1, 0.7),
+                              (3, FSK.MAX_WIDTH, 0.05))]
+    for h, w in ((4, 32), (5, 33), (6, 64), (3, 1)):
+        d = np.full((h, w), 0.5, np.float32)
+        d[1::2, ::3] = 0.25
+        cases.append((f"{h}x{w}@half", d))
+    return cases
+
+
 def floyd_steinberg_checks(dev, density: torch.Tensor) -> dict:
     """The seeding kernel against its plain version (the host scan) at the
-    main path's density and at odd widths, to the bit, and timed beside it
-    and the bytes bound; the serial chain's estimate beside them."""
-    rng = np.random.default_rng(1)
-    cases = [density] + [torch.from_numpy((rng.random(shape) * sc).astype(np.float32)).to(dev)
-                         for shape, sc in (((1, 9), 0.4), ((37, 51), 0.05), ((121, 163), 0.3), ((479, 641), 0.01))]
-    for d in cases:
+    main path's density and at the edge cases, to the bit, and timed beside
+    it, the bytes bound and the chain bound: the chain probe's time (one
+    thread running the scan's per-pixel chain, in registers, once a pixel)."""
+    cases = [("frame", density)] + [(n, torch.from_numpy(d).to(dev))
+                                    for n, d in floyd_steinberg_cases(np.random.default_rng(1))]
+    for name, d in cases:
         got = FSK.floyd_steinberg(d).cpu().numpy()
         want = FSK.floyd_steinberg_plain(d.cpu().numpy()).astype(np.float32)
-        check(np.array_equal(got, want), f"floyd_steinberg kernel differs from the host scan at {tuple(d.shape)}")
+        check(np.array_equal(got, want), f"floyd_steinberg kernel differs from the host scan at {name}")
     h, w = density.shape
     n_seeds = int(FSK.floyd_steinberg(density).shape[0])
     host = density.cpu().numpy()
@@ -2146,13 +2271,13 @@ def floyd_steinberg_checks(dev, density: torch.Tensor) -> dict:
     w0 = time.perf_counter()
     FSK.floyd_steinberg_plain(host)
     plain_ms = (time.perf_counter() - w0) * 1e3
-    return {"max_abs_err": 0.0, "shape": [h, w], "seeds": n_seeds,
-            "ms": cuda_ms(lambda: FSK.floyd_steinberg(density), reps=5),
-            "plain_ms": plain_ms, "plain_where": "host (numpy scan of the density read back)",
+    ms = cuda_ms(lambda: FSK.floyd_steinberg(density), reps=5)
+    chain_ms = cuda_ms(lambda: FSK.chain_probe(h * w, dev), reps=5)
+    return {"max_abs_err": 0.0, "shape": [h, w], "seeds": n_seeds, "edge_cases": [c[0] for c in cases[1:]],
+            "ms": ms, "plain_ms": plain_ms, "plain_where": "host (numpy scan of the density read back)",
             "library_ms": None, "bytes": n_bytes, "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
-            "chain_estimate_ms": h * w * FS_CHAIN_OPS * FS_CHAIN_CYCLES / H100_CLOCK_HZ * 1e3,
-            "chain_assumption": f"{FS_CHAIN_OPS} dependent double ops a pixel, {FS_CHAIN_CYCLES} cycles each, "
-                                f"{H100_CLOCK_HZ / 1e9} GHz"}
+            "chain_bound_ms": chain_ms, "ms_over_chain_bound": ms / chain_ms,
+            "chain_ns_per_pixel": chain_ms * 1e6 / (h * w), "sm_clock_after": sm_clock_mhz()}
 
 
 def seg_stage_ms(rgb, depth, K, masks, model_points, dev) -> dict:
@@ -2243,7 +2368,7 @@ def phase_seg(dev) -> tuple:
     cfg = seg_config(K)
     rgb_t, depth_t = seg_frame_tensors(rgb, depth, dev)
     px = seg_pixel_stage(rgb_t, depth_t, cfg)
-    ids = torch.from_numpy(card["indices"].reshape(-1)).to(dev)
+    ids = torch.from_numpy(card["indices"].reshape(-1)).to(dev, torch.int64)  # int64, as the ALIC update gives them
     s_pad = int(card["sp"]["num"].shape[0])
     kernels = {"segment_sum": segment_sum_checks(dev, seg_alic_pixel_table(px), ids, s_pad),
                "floyd_steinberg": floyd_steinberg_checks(dev, px["density"])}
@@ -2336,11 +2461,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     built = _build.build()
-    emit("build", t0, kernels={
-        n: {"seconds": round(b["seconds"], 3),
-            "ptxas": [ln.strip() for ln in b["log"].splitlines() if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]}
-        for n, b in built.items()
-    })
+    ptxas = {n: ptxas_summary(b["log"]) for n, b in built.items()}
+    emit("build", t0, kernels={n: {"seconds": round(b["seconds"], 3), "ptxas": ptxas[n]} for n, b in built.items()})
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
@@ -2414,6 +2536,7 @@ def main() -> int:
         "bound_ms": bound["bound_ms"],
         "bound_by": bound["bound_by"],
         "library_ms": lib_ms,
+        "ptxas": ptxas["local_refine"],
         "at_multiclass_call_K1152": {"ms": mc_kernel["kernel_ms"], "plain_ms": mc_kernel["plain_ms"],
                                      "bound_ms": mc_kernel["bound"]["bound_ms"], "bound_by": mc_kernel["bound"]["bound_by"],
                                      "library_ms": mc_kernel["library_grouped_conv_ms"]},
@@ -2430,8 +2553,11 @@ def main() -> int:
         "launches_by_phase": {"seg": seg_launches[name]},
         "exact_vs_plain": True,
         **{k: seg_kernels[name][k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{k: seg_kernels[name][k] for k in ("split_ms", "chain_bound_ms") if k in seg_kernels[name]},
+        "ptxas": ptxas[name],
         "at": {k: v for k, v in seg_kernels[name].items()
-               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+               if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "split_ms",
+                            "chain_bound_ms")},
     } for name in ("segment_sum", "floyd_steinberg")]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from sixdpose_tpu_torch.geometry.render import _dot3
-from sixdpose_tpu_torch.models.refine import _sqrt
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
 
 
 def project_pts(pts, K, R, t):
@@ -31,7 +31,7 @@ def depth_im_to_dist_im(depth_im: torch.Tensor, K: torch.Tensor) -> torch.Tensor
     d = depth_im.to(torch.float32)
     X = (xs - K[0, 2]) * d / K[0, 0]
     Y = (ys - K[1, 2]) * d / K[1, 1]
-    return _sqrt(_dot3(X, X, Y, Y, d, d))
+    return sqrt32(_dot3(X, X, Y, Y, d, d))
 
 
 def rgbd_to_point_cloud(K, depth, rgb=None):

@@ -24,7 +24,8 @@ import torch
 from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.eval.misc import depth_im_to_dist_im
 from sixdpose_tpu_torch.geometry.render import render
-from sixdpose_tpu_torch.models.refine import _norm, _sqrt, _sum_last, _tree_sum
+from sixdpose_tpu_torch.models.refine import _norm, _sum_last, _tree_sum
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
 
 # ---------------------------------------------------------------------------
 # Visibility masks (reference: pysixd/visibility.py:6-31)
@@ -91,7 +92,7 @@ def adi(R_est, t_est, R_gt, t_gt, model, max_pts: Optional[int] = None, device=N
     for s in range(0, pg.shape[0], chunk):
         g = pg[s : s + chunk]
         d2 = _sum_last((g[:, None, :] - pe[None, :, :]) ** 2)
-        dists.append(_sqrt(d2.amin(1)))
+        dists.append(sqrt32(d2.amin(1)))
     n = pg.shape[0]
     return float(_tree_sum(torch.cat(dists), 0) / _tree_sum(torch.ones((n,), device=device), 0))
 

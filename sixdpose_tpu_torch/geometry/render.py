@@ -38,7 +38,8 @@ import numpy as np
 import torch
 
 from sixdpose_tpu_torch.device import resolve_device
-from sixdpose_tpu_torch.models.refine import _scalar, _sqrt
+from sixdpose_tpu_torch.models.refine import _scalar
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
 
 
 def subdivide_mesh(
@@ -249,7 +250,7 @@ def _face_shade(cam: torch.Tensor, faces: torch.Tensor, ambient: float) -> torch
     a, b = p1 - p0, p2 - p0
     n = torch.stack([_fma(a[..., i], b[..., j], -(a[..., j] * b[..., i])) for i, j in ((1, 2), (2, 0), (0, 1))], -1)
     nn = _fma(n[..., 2], n[..., 2], _fma(n[..., 1], n[..., 1], n[..., 0] * n[..., 0]))
-    n = n / _sqrt(nn)[..., None].clamp(min=1e-12)
+    n = n / sqrt32(nn)[..., None].clamp(min=1e-12)
     return _fma(1 - ambient, n[..., 2].abs(), ambient).clamp(0.0, 1.0)
 
 

@@ -28,8 +28,9 @@ Here the solver is written natively batched over K candidates, with
 - the per-iteration scalars of the gate and colour schedules are float32
   values computed on the host, the same for every device;
 - every sum has a fixed order (``_tree_sum`` over the points, in-order
-  adds over short axes) and sqrt, sin and cos are evaluated in float64 and
-  rounded, so the card and the CPU give the same bits.  ICP's inlier gate
+  adds over short axes), sin and cos are evaluated in float64 and
+  rounded, and sqrt is ``ops/sqrt.py``'s correctly rounded one, so the
+  card and the CPU give the same bits.  ICP's inlier gate
   turns a one-ulp difference into millimetres wherever ICP does not
   converge, so "close" between devices is only reachable as "equal".
 
@@ -48,6 +49,7 @@ import torch.nn.functional as F
 
 from sixdpose_tpu_torch.config import IcpConfig
 from sixdpose_tpu_torch.device import resolve_device
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
 
 
 def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -110,18 +112,9 @@ def _sum_last(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """float32 square root, correctly rounded on every device: evaluated in
-    float64 (exact enough that rounding it gives the correctly rounded
-    float32 result) and rounded.  PyTorch's float32 ``torch.sqrt`` on the
-    CPU is off by an ulp for about 0.8% of inputs, where it differs from
-    the card's."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
-
-
 def _norm(a: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm over the last axis, summed in order."""
-    n = _sqrt(_sum_last(a * a))
+    n = sqrt32(_sum_last(a * a))
     return n[..., None] if keepdim else n
 
 
@@ -492,7 +485,7 @@ def icp_batch(
     good = model_valid & inb & (q[..., 2] > 0) & (dist < corr_dist)
     n_good = good.sum(-1)
     fitness = n_good.to(torch.float32) / model_valid.sum(-1).clamp(min=1).to(torch.float32)
-    rmse = _sqrt(_tree_sum(torch.where(good, dist * dist, 0.0), dim=1) / n_good.clamp(min=1).to(torch.float32))
+    rmse = sqrt32(_tree_sum(torch.where(good, dist * dist, 0.0), dim=1) / n_good.clamp(min=1).to(torch.float32))
     return T, fitness, rmse
 
 
@@ -617,7 +610,7 @@ def verify_poses_multi(
             nm = model_valid.sum(-1).clamp(min=1).to(torch.float32)[:, None]
             mu = _tree_sum(torch.where(model_valid[..., None], mcn, 0.0), dim=1) / nm
             dev = _sum_last((mcn - mu[:, None, :]).abs())
-            sd = _sqrt(_tree_sum(torch.where(model_valid, dev * dev, 0.0), dim=1)[:, None] / nm)
+            sd = sqrt32(_tree_sum(torch.where(model_valid, dev * dev, 0.0), dim=1)[:, None] / nm)
             wgt = 0.25 + (dev / (sd + 1e-6)).clamp(0.0, 4.0)
             cfrac = _tree_sum(wgt * c_ok, dim=1) / _tree_sum(wgt * considered, dim=1).clamp(min=1e-6)
         else:

@@ -84,6 +84,24 @@ def build(names: Iterable[str] = None) -> Dict[str, dict]:
     return out
 
 
+def launch(dev, fn, *args) -> None:
+    """Calls the C launcher ``fn`` of a built library with ``args`` and the
+    raw handle of ``dev``'s current stream (its last argument), with ``dev``
+    the current device; raises RuntimeError on a CUDA error it returns.
+    The raw handle, and the device guard only where another device is
+    current, keep the host's share of a call small
+    (``torch.cuda.current_stream`` builds a Stream object)."""
+    import torch
+
+    if dev.index == torch.cuda.current_device():
+        rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, torch._C._cuda_getCurrentRawStream(dev.index))
+    if rc != 0:
+        raise RuntimeError(f"{fn.__name__} failed: cudaError {rc}")
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     if name not in _loaded:

@@ -6,7 +6,9 @@ density, a seed where the diffused value reaches 0.5, the classic 7/16,
 3/16, 5/16, 1/16 kernel.  A CPU tensor runs the plain version, a numpy
 copy of the JAX package's scan (equal to its native C++ scan); a CUDA
 tensor runs ``csrc/floyd_steinberg.cu``, the same scan in one thread in
-double precision, or raises.  It never falls back.
+double precision (with the block's other warps staging the density and
+compacting the seeds), or raises.  It never falls back.  ``chain_probe``
+runs the scan's per-pixel chain alone on the card, to time its bound.
 """
 
 from __future__ import annotations
@@ -18,9 +20,23 @@ import torch
 
 from sixdpose_tpu_torch.ops import _build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-             ctypes.c_void_p]
-_MAX_WIDTH = 232448 // 24  # three rows of doubles in one block's shared memory
+_ARGTYPES = {
+    "floyd_steinberg_launch": [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                               ctypes.c_int, ctypes.c_void_p],
+    "floyd_steinberg_chain_launch": [ctypes.c_int, ctypes.c_double, ctypes.c_void_p, ctypes.c_void_p],
+}
+SMEM_LIMIT = 232448  # a block's shared memory on the H100
+
+
+def smem_bytes(w: int) -> int:
+    """Shared memory of the kernel at width w: four rows of float64 (two
+    of values, two of density), each with 16 spare elements on either
+    side, and two rows of 32-bit seed words (``smem_bytes`` in the
+    source)."""
+    return 32 * (w + 32) + 8 * (-(-w // 32))
+
+
+MAX_WIDTH = max(w for w in range(SMEM_LIMIT // 33, SMEM_LIMIT // 32) if smem_bytes(w) <= SMEM_LIMIT)
 
 
 def floyd_steinberg_plain(density: np.ndarray) -> np.ndarray:
@@ -55,10 +71,11 @@ def floyd_steinberg_plain(density: np.ndarray) -> np.ndarray:
 
 def _library() -> ctypes.CDLL:
     lib = _build.load("floyd_steinberg")
-    fn = lib.floyd_steinberg_launch
-    if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
+    for name, argtypes in _ARGTYPES.items():
+        fn = getattr(lib, name)
+        if fn.argtypes is None:
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -79,22 +96,32 @@ def floyd_steinberg(density: torch.Tensor):
     density = density.contiguous()
     h, w = density.shape
     dev = density.device
-    if w > _MAX_WIDTH:
-        raise ValueError(f"density width {w} above the kernel's {_MAX_WIDTH} (three rows in shared memory)")
+    if w > MAX_WIDTH:
+        raise ValueError(f"density width {w} above the kernel's {MAX_WIDTH} (its rows in shared memory)")
     cap = h * w  # a pixel holds at most one seed
     seeds = torch.empty((cap, 2), dtype=torch.float32, device=dev)
     count = torch.zeros((1,), dtype=torch.int32, device=dev)
     if h * w:
-        lib = _library()
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream(dev).cuda_stream
-            rc = lib.floyd_steinberg_launch(density.data_ptr(), h, w, seeds.data_ptr(), count.data_ptr(), cap,
-                                            stream)
-        if rc != 0:
-            raise RuntimeError(f"floyd_steinberg kernel launch failed: cudaError {rc}")
+        _build.launch(dev, _library().floyd_steinberg_launch, density.data_ptr(), h, w, seeds.data_ptr(),
+                      count.data_ptr(), cap)
         floyd_steinberg.launches += 1
     n = int(count.item())
     return seeds[:n]
 
 
 floyd_steinberg.launches = 0  # kernel launches, for chip runs to read
+
+
+def chain_probe(n: int, device, value: float = 0.3) -> torch.Tensor:
+    """One launch of the chain probe on the card: one thread runs the
+    scan's per-pixel chain (add, compare, select, multiply by 0.4375) ``n``
+    times on a pixel value ``value``, in registers.  Returns (2,) float64:
+    the last carry and the seed count.  Its time is the scan's bound."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("chain_probe measures the card; it has no plain version")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    out = torch.empty((2,), dtype=torch.float64, device=dev)
+    _build.launch(dev, _library().floyd_steinberg_chain_launch, n, value, out.data_ptr())
+    return out

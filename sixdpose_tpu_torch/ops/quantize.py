@@ -23,6 +23,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
+
 # The JAX package's quantizer version: the same behaviour, so a bank cache
 # written by either package stays valid for the other (see
 # benchmark.train_benchmark_bank).
@@ -242,7 +244,7 @@ def quantize_depth_normal(
     nx = _f32(focal, dev) * ddx
     ny = _f32(focal, dev) * ddy
     nz = -det * d.to(torch.float32)
-    norm = torch.sqrt(nx * nx + ny * ny + nz * nz)
+    norm = sqrt32(nx * nx + ny * ny + nz * nz)
 
     if lut_parity:
         nn = torch.clamp(norm, min=1e-12)

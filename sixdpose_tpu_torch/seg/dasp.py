@@ -36,6 +36,7 @@ import torch
 
 from sixdpose_tpu_torch.ops.floyd_steinberg import floyd_steinberg
 from sixdpose_tpu_torch.ops.segment_sum import segment_sum
+from sixdpose_tpu_torch.ops.sqrt import sqrt32, sqrt64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,19 +83,6 @@ def _fma(a, b, c) -> torch.Tensor:
     """float32 ``a * b + c`` rounded once, as XLA on the CPU contracts it
     (exact float64 product, one rounding: the same bits on every device)."""
     return (a.double() * b.double() + c.double()).float()
-
-
-def sqrt64(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float64 sqrt on every device: CUDA's is; torch's
-    vectorised CPU sqrt is off by an ulp at times, numpy's is not."""
-    if x.is_cuda:
-        return torch.sqrt(x)
-    return torch.from_numpy(np.asarray(np.sqrt(x.numpy())))
-
-
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    """float32 sqrt, correctly rounded on every device (through float64)."""
-    return sqrt64(x.double()).float()
 
 
 def _rsqrt(x: torch.Tensor) -> torch.Tensor:
@@ -193,7 +181,7 @@ def pixel_stage(rgb: torch.Tensor, depth: torch.Tensor, cfg: DaspConfig) -> Dict
 
     # Density (DASP.cpp:167-171): q * q / 3.1415 * sqrt(|g|^2 + 1).
     q = d * float(f32(c_z) * f32(_recip(f32(cfg.radius * cfg.focal_px))))
-    density = ((q * q) * _recip(3.1415)) * _sqrt(gg + 1.0)
+    density = ((q * q) * _recip(3.1415)) * sqrt32(gg + 1.0)
     density = torch.where(valid, density, torch.zeros_like(density))
 
     color = rgb.to(torch.float32) * _recip(255.0)

@@ -33,7 +33,8 @@ import numpy as np
 import torch
 
 from sixdpose_tpu_torch.device import resolve_device
-from sixdpose_tpu_torch.seg.dasp import _fma, _sum3_sq, sqrt64
+from sixdpose_tpu_torch.ops.sqrt import sqrt32, sqrt64
+from sixdpose_tpu_torch.seg.dasp import _fma, _sum3_sq
 
 # Elements per block of the pairwise distance tensors (hypotheses x points
 # x scene points, pairs x pairs): about 130 MB of float64 on the card; on
@@ -65,7 +66,7 @@ def _sq32(v) -> float:
 
 
 def _norm3(d: torch.Tensor) -> torch.Tensor:
-    return sqrt64(_sum3_sq(d).double()).float()
+    return sqrt32(_sum3_sq(d))
 
 
 def _top_eigenvector(n: torch.Tensor) -> torch.Tensor:

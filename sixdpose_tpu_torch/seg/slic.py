@@ -27,12 +27,12 @@ import torch
 
 from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.ops.segment_sum import segment_sum
+from sixdpose_tpu_torch.ops.sqrt import sqrt32
 from sixdpose_tpu_torch.seg.dasp import (
     _SLACK,
     _c,
     _fma,
     _plain3,
-    _sqrt,
     _sum3_sq,
     assign_cells,
     cell_candidates,
@@ -71,7 +71,7 @@ def _assign2d(color, table, cand, cfg: SlicConfig):
     def dist(pix, g, x, y, exact):
         dx, dy = x - g[..., 0], y - g[..., 1]
         m = torch.maximum(g[..., 5] * _c(np.pi), torch.full_like(g[..., 5], 1e-9))
-        box = _sqrt(torch.ones_like(m) / m) * lam
+        box = sqrt32(torch.ones_like(m) / m) * lam
         inbox = (torch.abs(dx) <= box) & (torch.abs(dy) <= box)
         dc = pix["color"] - g[..., 2:5]
         if exact:

@@ -552,6 +552,114 @@ def test_floyd_steinberg_kernel_matches_plain(cuda, h, w, scale):
     assert FS.floyd_steinberg.launches == before + 1
 
 
+
+def _segment_case(name):
+    """Edge cases of the segment-sum kernel: (vals (N, C), ids, S)."""
+    rng = np.random.default_rng(len(name))
+    n, c, s = {"one_segment_every_row": (60_000, 13, 1), "c1": (5000, 1, 64), "c13_vga": (307_200, 13, 640),
+               "rows_not_a_tile_multiple": (8 * 1024 + 1, 13, 77), "short": (31, 3, 5),
+               "every_id_out_of_range": (3000, 13, 40), "s_above_1024": (20_000, 13, 3000),
+               "s_past_48kb_of_counters": (50_000, 2, 20_000), "s_at_the_limit": (70_000, 1, 58_112)}[name]
+    vals = (rng.normal(0, 1, (n, c)) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+    if name == "one_segment_every_row":
+        ids = np.zeros(n, np.int64)
+    elif name == "every_id_out_of_range":
+        ids = np.where(rng.random(n) < 0.5, -1 - rng.integers(0, 5, n), s + rng.integers(0, 5, n))
+    elif name == "c13_vga":  # superpixel-like: runs of one id along image rows
+        ids = np.repeat(rng.integers(-1, s + 1, n // 40), 40)
+    else:
+        ids = rng.integers(-1, s + 1, n)
+    return torch.from_numpy(vals), torch.from_numpy(ids.astype(np.int32 if c == 1 else np.int64)), s
+
+
+SEGMENT_CASES = ["one_segment_every_row", "c1", "c13_vga", "rows_not_a_tile_multiple", "short",
+                 "every_id_out_of_range", "s_above_1024", "s_past_48kb_of_counters", "s_at_the_limit"]
+
+
+@pytest.mark.parametrize("name", SEGMENT_CASES)
+def test_segment_sum_kernel_edge_cases(cuda, name):
+    """The kernel equals its plain version to the bit at the longest chain
+    (one segment holding every row), C = 1 and 13, row counts that are not
+    a multiple of the layout's tile, every id out of range, and S above
+    1,024 (counters beyond 48 KB of shared memory, and at the limit)."""
+    from sixdpose_tpu_torch.ops import segment_sum as SS
+
+    vals, ids, s = _segment_case(name)
+    want = SS.segment_sum(vals, ids, s)
+    got = SS.segment_sum(vals.to(cuda), ids.to(cuda), s)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("name", SEGMENT_CASES)
+def test_segment_layout_kernel_matches_csr_layout(cuda, name):
+    """The card's counting sort gives the plain layout's kept rows, in the
+    same (stable) order, and its segment starts."""
+    from sixdpose_tpu_torch.ops import segment_sum as SS
+
+    _, ids, s = _segment_case(name)
+    order, starts, counts = SS.csr_layout(ids, s)
+    got_order, got_starts = SS.segment_layout(ids.to(cuda), s)
+    kept = int(counts.sum())
+    assert int(got_starts[-1]) == kept
+    assert torch.equal(got_order[:kept].cpu().to(torch.int64), order[:kept])
+    assert torch.equal(got_starts[:-1].cpu().to(torch.int64), starts)
+
+
+def test_segment_sum_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from sixdpose_tpu_torch.ops import segment_sum as SS
+
+    vals = torch.zeros((10, 3), device=cuda)
+    ids = torch.zeros(10, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        SS.segment_sum(vals, ids, SS.MAX_SEGMENTS + 1)
+    with pytest.raises(ValueError):
+        SS.segment_sum(torch.zeros((10, SS.MAX_CHANNELS + 1), device=cuda), ids, 4)
+    with pytest.raises(TypeError):
+        SS.segment_sum(vals, ids.to(torch.int16), 4)
+
+
+@pytest.mark.parametrize("h,w,scale", [(64, 80, 0.95), (1, 700, 0.95), (33, 47, 1.0), (5, 301, 0.02),
+                                       (9, 1, 0.6), (3, 7175, 0.05)])
+def test_floyd_steinberg_kernel_edge_cases(cuda, h, w, scale):
+    """Dense seeds (most pixels at or above one half), H = 1 and W = 1, odd
+    heights, and the widest width the kernel's shared memory holds."""
+    from sixdpose_tpu_torch.ops import floyd_steinberg as FS
+
+    assert w <= FS.MAX_WIDTH
+    density = torch.from_numpy((np.random.default_rng(h + w).random((h, w)) * scale).astype(np.float32))
+    want = FS.floyd_steinberg(density)
+    got = FS.floyd_steinberg(density.to(cuda))
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("h,w", [(4, 32), (5, 33), (6, 64), (3, 1)])
+def test_floyd_steinberg_kernel_values_exactly_one_half(cuda, h, w):
+    """A density of exactly 0.5 (and 0.25 beside it): every comparison with
+    0.5 meets equality somewhere, at word and row boundaries."""
+    from sixdpose_tpu_torch.ops import floyd_steinberg as FS
+
+    density = np.full((h, w), 0.5, np.float32)
+    density[1::2, ::3] = 0.25
+    density = torch.from_numpy(density)
+    want = FS.floyd_steinberg(density)
+    got = FS.floyd_steinberg(density.to(cuda))
+    assert torch.equal(got.cpu(), want) and len(want) > 0
+
+
+def test_floyd_steinberg_rejects_too_wide_and_chain_probe_runs(cuda):
+    from sixdpose_tpu_torch.ops import floyd_steinberg as FS
+
+    with pytest.raises(ValueError):
+        FS.floyd_steinberg(torch.zeros((2, FS.MAX_WIDTH + 1), device=cuda))
+    out = FS.chain_probe(1000, cuda, 0.3).cpu().numpy()
+    carry, seeds = 0.0, 0
+    for _ in range(1000):  # the chain in Python floats (IEEE doubles)
+        v = 0.3 + carry
+        seeds += v >= 0.5
+        carry = (v - 1.0 if v >= 0.5 else v) * 0.4375
+    assert out[0] == carry and out[1] == seeds
+
 def _seg_scene():
     """Two flat boxes on a tilted ground plane, 160x120, f=200."""
     h, w = 120, 160

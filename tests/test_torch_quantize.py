@@ -206,3 +206,26 @@ def test_pyramids(rng):
         TQ.depth_normal_pyramid(_t(depth.astype(np.int32)), 3),
     ):
         np.testing.assert_array_equal(tq.numpy(), np.asarray(jq))
+
+
+def test_quantize_depth_normal_lut_parity_on_norms_torch_rounds_wrong(rng, monkeypatch):
+    """The ``lut_parity`` bins divide by the normal's norm.  On this depth
+    some squared norms are inputs where torch's CPU float32 sqrt is off by
+    an ulp; the port's correctly rounded sqrt gives JAX's norms there, and
+    the bins equal JAX's to the bit."""
+    seen = []
+    real = TQ.sqrt32
+
+    def spy(x):
+        seen.append(x.clone())
+        return real(x)
+
+    monkeypatch.setattr(TQ, "sqrt32", spy)
+    depth = _depth(rng)
+    t = TQ.quantize_depth_normal(_t(depth.astype(np.int32)), lut_parity=True).numpy()
+    j = np.asarray(JQ.quantize_depth_normal(jnp.asarray(depth), lut_parity=True))
+    sq = torch.cat([s.reshape(-1) for s in seen])
+    off = torch.sqrt(sq) != real(sq)
+    assert int(off.sum()) > 10, int(off.sum())
+    assert np.array_equal(real(sq[off]).numpy(), np.asarray(jnp.sqrt(jnp.asarray(sq[off].numpy()))))
+    assert np.array_equal(t, j)

@@ -125,6 +125,70 @@ def test_segment_sum_plain_matches_jax(n, c, s):
     assert np.array_equal(got.numpy(), want)
 
 
+
+@pytest.mark.parametrize("shape,scale", [((64, 80), 0.95), ((1, 700), 0.95), ((33, 47), 1.0), ((5, 301), 0.02),
+                                         ((9, 1), 0.6), ((3, FS.MAX_WIDTH), 0.05)])
+def test_seeds_match_jax_edge_cases(shape, scale):
+    """The kernel's card edge cases for the plain scan: dense seeds, H = 1
+    and W = 1, odd heights, the widest width the kernel takes."""
+    density = (np.random.default_rng(sum(shape)).random(shape) * scale).astype(np.float32)
+    want = JD.floyd_steinberg_seeds(density)
+    assert np.array_equal(FS.floyd_steinberg_plain(density), want)
+    assert np.array_equal(T.floyd_steinberg_seeds(torch.from_numpy(density)).numpy(), want.astype(np.float32))
+
+
+@pytest.mark.parametrize("shape", [(4, 32), (5, 33), (6, 64), (3, 1)])
+def test_seeds_match_jax_values_exactly_one_half(shape):
+    density = np.full(shape, 0.5, np.float32)
+    density[1::2, ::3] = 0.25
+    want = JD.floyd_steinberg_seeds(density)
+    assert len(want) > 0
+    assert np.array_equal(T.floyd_steinberg_seeds(torch.from_numpy(density)).numpy(), want.astype(np.float32))
+
+
+def _segment_edge_case(name):
+    """(vals, ids, S) of the segment-sum kernel's card edge cases, cut to
+    CPU size."""
+    rng = np.random.default_rng(len(name))
+    n, c, s = {"one_segment_every_row": (6000, 13, 1), "c1": (5000, 1, 64), "rows_not_a_tile_multiple": (8193, 13, 77),
+               "every_id_out_of_range": (3000, 13, 40), "s_above_1024": (20_000, 13, 3000)}[name]
+    vals = (rng.normal(0, 1, (n, c)) * 10.0 ** rng.integers(-3, 4, (n, 1))).astype(np.float32)
+    if name == "one_segment_every_row":
+        ids = np.zeros(n, np.int64)
+    elif name == "every_id_out_of_range":
+        ids = np.where(rng.random(n) < 0.5, -1 - rng.integers(0, 5, n), s + rng.integers(0, 5, n))
+    else:
+        ids = rng.integers(-1, s + 1, n)
+    return vals, ids.astype(np.int32), s
+
+
+SEGMENT_EDGE_CASES = ["one_segment_every_row", "c1", "rows_not_a_tile_multiple", "every_id_out_of_range",
+                      "s_above_1024"]
+
+
+@pytest.mark.parametrize("name", SEGMENT_EDGE_CASES)
+def test_segment_sum_plain_matches_jax_edge_cases(name):
+    """The kernel's card edge cases for the plain version, against XLA's
+    ``segment_sum`` (which drops out-of-range ids too)."""
+    vals, ids, s = _segment_edge_case(name)
+    want = np.asarray(jax.ops.segment_sum(jnp.asarray(vals), jnp.asarray(ids), num_segments=s))
+    got = SS.segment_sum(torch.from_numpy(vals), torch.from_numpy(ids), s)
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("name", SEGMENT_EDGE_CASES)
+def test_csr_layout_matches_numpy_stable_argsort(name):
+    """The plain layout (the card layout's counterpart): the kept rows in
+    numpy's stable order by id, and each segment's start and length."""
+    _, ids, s = _segment_edge_case(name)
+    order, starts, counts = SS.csr_layout(torch.from_numpy(ids), s)
+    kept = (ids >= 0) & (ids < s)
+    key = np.where(kept, ids, s)
+    want = np.argsort(key, kind="stable")[: kept.sum()]
+    assert np.array_equal(order.numpy()[: kept.sum()], want)
+    n = np.bincount(ids[kept], minlength=s)
+    assert np.array_equal(counts.numpy(), n) and np.array_equal(starts.numpy(), np.cumsum(n) - n)
+
 def test_alic_matches_jax(jax_run):
     """ALIC from JAX's own pixel maps: indices and means to the bit."""
     r = jax_run
