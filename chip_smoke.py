@@ -41,7 +41,13 @@ Drives the port's main paths, and checks every result:
   segmentation path (``seg``: VGA RGB-D, f = 545, ``DaspConfig`` and
   ``pose_estimation`` defaults; ``synthetic.bin_picking_scene``: the nine
   meshes 450-600 mm away over a tilted floor): ``convex_cloud_seg`` and
-  each object's ``pose_estimation``.
+  each object's ``pose_estimation``;
+- at the full width of the bench workload and of one class of the
+  multi-scale sweep, over several ranks: the ``parallel`` entry points
+  (``sharded_detect``, ``tiled_detect``, ``sharded_multiscale_detect``)
+  on ranks that share the one card;
+- the SIXD tool twins (``sixdpose_tpu_torch/tools``) at the mini-SIXD size
+  of the JAX package's tool test (240 x 180, one object, two test views).
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -141,7 +147,16 @@ non-zero:
    not gated).  One line ``{"seg": {...}}``; then seg_golden: the card
    against the JAX golden of ``tools/torch_port_seg_golden.py`` at
    320 x 240;
-18. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
+18. parallel: the ``parallel`` entry points on the bench batch and one
+   multi-scale class: mesh (1, 1, 1) over NCCL equal to
+   ``Detector.match_batch_arrays``; data 2 x template 2, tile 2 and
+   template-2 multi-scale on four ranks sharing the card over gloo, each
+   equal to four CPU ranks; refine launches per rank; rank 0's ms per step
+   and per merge collective (CUDA events) and its device ms per step
+   (torch.profiler);
+19. tools: the tool twins' compute (train, detect, ADI errors, recall) on
+   the card against the same chain on the CPU;
+20. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
    bounds of the scene maps and of ICP; and of the kernel (replayed from
@@ -163,16 +178,17 @@ non-zero:
    Under ``synth``: the service's stage times per served frame, device ms
    per fused frame, render ms per 16-view batch and training seconds per
    class;
-19. profile, profile_refine, profile_mc, profile_ms, profile_synth:
+21. profile, profile_refine, profile_mc, profile_ms, profile_synth:
    torch.profiler's split of a B=1 match frame, of a B=1 detect+refine frame, of a fused
    multi-class frame, of a one-pass multi-scale frame and of one frame
    served by ``PoseEstimationService`` on a rendered benchmark scene into
    device kernels and host ops, and the device's idle share;
-20. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
+22. kernels: one line ``{"kernels": [...]}`` with, per kernel, its route,
    source, the TPU kernels it replaces (the seg kernels replace none: the
    JAX code they take the place of), its launches in the main paths'
-   phases (in all and per phase, ``synth_golden``, ``synth``, ``lchf`` and
-   ``seg`` among them), its error against the plain version, and its time
+   phases (in all and per phase, ``synth_golden``, ``synth``, ``lchf``,
+   ``seg``, ``parallel`` (summed over every card rank) and ``tools`` among
+   them), its error against the plain version, and its time
    beside the plain version's, the library call's and the bound (the
    refine kernel at the bench B=1 call, the multi-class call and the
    multi-scale call; the seg kernels at the bin-picking frame's inputs,
@@ -181,7 +197,11 @@ non-zero:
    memory, spills); then the ``nvidia-smi`` line again.
 
 The last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device
-the script prints no result and exits 2.
+the script prints no result and exits 2.  ``python3 chip_smoke.py
+parallel`` runs env, build and the ``parallel`` phase only, then, with two
+or more cards, ``tools.bench_scaling``'s sweep over them (one line
+``scaling``): on a host with four cards every rank has a card of its own
+and the ranks talk over NCCL.
 """
 
 from __future__ import annotations
@@ -270,7 +290,15 @@ from sixdpose_tpu_torch.seg.dasp import alic_pixel_table as seg_alic_pixel_table
 from sixdpose_tpu_torch.seg.dasp import convex_grouping as seg_convex_grouping
 from sixdpose_tpu_torch.seg.dasp import floyd_steinberg_seeds as seg_seeds
 from sixdpose_tpu_torch.seg.dasp import pixel_stage as seg_pixel_stage
+from sixdpose_tpu_torch.parallel.distributed import backend_for, run_ranks
+from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
+from sixdpose_tpu_torch.parallel.sharded_match import multiscale_class_arrays
 from sixdpose_tpu_torch.serving import PoseEstimationService
+from sixdpose_tpu_torch.tools import detect_sixd as tools_detect
+from sixdpose_tpu_torch.tools import eval_calc_errors as tools_errors
+from sixdpose_tpu_torch.tools import bench_scaling as tools_scaling
+from sixdpose_tpu_torch.tools import eval_loc as tools_loc
+from sixdpose_tpu_torch.tools import train_templates as tools_train
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "sixdpose_tpu_torch", "testdata")
@@ -2444,6 +2472,209 @@ def phase_seg_golden(dev) -> dict:
             "accepted": int((g["reg_lcp"] > 0.5).sum()), "worst_vs_jax": worst}
 
 
+# -- multi-device matching (parallel/) -------------------------------------------
+
+PARALLEL_REPS = 10
+PARALLEL_TIMEOUT = 300.0  # seconds for each spawn of ranks; a rank that fails or hangs fails the phase
+PARALLEL_CPU_THREADS = 2  # four CPU ranks on the machine's eight cores
+PARALLEL_PROFILE = 3  # steps rank 0 profiles for its device time
+SCALING_ITERS = 20
+
+
+def parallel_jobs(cid, det, frames, depths, w_ms, reps: int) -> list:
+    """The jobs of the four ranks: data 2 x template 2 on the bench batch,
+    tile 2 on its first frame, and template 2 multi-scale on the first class
+    of the multi-scale workload (337 templates), all at LOW_THRESHOLD."""
+    levels = det.bank.finalized(cid)
+    arrays = multiscale_class_arrays(w_ms["templates"][0], w_ms["train_depth"], w_ms["cfg"].t_at_level[-1])
+    common = dict(threshold=LOW_THRESHOLD, reps=reps)
+    return [
+        dict(kind="sharded", mesh=(2, 2, 1), levels=levels, rgb=frames, depth=depths, cfg=BENCH_CFG, **common),
+        dict(kind="tiled", mesh=(1, 1, 2), levels=levels, rgb=frames[0], depth=depths[0], cfg=BENCH_CFG, **common),
+        dict(kind="multiscale", mesh=(1, 2, 1), arrays=arrays, rgb=w_ms["rgb"], depth=w_ms["depth"], cfg=w_ms["cfg"],
+             train_depth=w_ms["train_depth"], num_scales=w_ms["num_scales"], **common),
+    ]
+
+
+def phase_parallel(dev, cid, det, frames, depths, w_ms) -> dict:
+    """The ``parallel`` entry points at full width, each rank a spawned
+    process (``run_ranks``, joined under ``PARALLEL_TIMEOUT``):
+
+    - mesh (1, 1, 1), one rank over NCCL: ``sharded_detect`` on the bench
+      batch (B = 4) equal to ``Detector.match_batch_arrays`` on the card;
+    - four ranks sharing the card over gloo: ``sharded_detect`` at data 2 x
+      template 2 (B = 4), ``tiled_detect`` at tile 2 (one frame) and
+      ``sharded_multiscale_detect`` at template 2 (one frame, 337
+      templates), each equal to the same mesh in four CPU ranks: the same
+      ranks answer on both sides, and exactly the mesh's ranks answer.
+
+    Each rank sets its local-refine launch count to 0 just before its job's
+    first step and reads it just after; every card rank of every mesh must
+    have launched the kernel.  Rank 0 times each step and its merge
+    collective alone with CUDA events, then profiles ``PARALLEL_PROFILE``
+    steps for its own device time (the rest of the step is the rank's host
+    work and waits); the rows of ranks sharing the card carry no
+    efficiency."""
+    t0 = time.perf_counter()
+    levels = det.bank.finalized(cid)
+    single = [dict(kind="sharded", mesh=(1, 1, 1), levels=levels, rgb=frames, depth=depths, cfg=BENCH_CFG,
+                   threshold=LOW_THRESHOLD, reps=PARALLEL_REPS, profile=PARALLEL_PROFILE)]
+    (nccl,) = run_ranks(run_jobs, 1, ("cuda", single), device_type="cuda", timeout=PARALLEL_TIMEOUT)[0]
+    ref = tuple(a.cpu().numpy() for a in det.match_batch_arrays(frames, depths, LOW_THRESHOLD, cid))
+    check(all(np.array_equal(a, b) for a, b in zip(nccl["outputs"], ref)),
+          "the (1, 1, 1) NCCL mesh differs from Detector.match_batch_arrays")
+    check(nccl["launches"] > 0, "the (1, 1, 1) mesh did not launch the refine kernel")
+    meshes = [{"mesh": [1, 1, 1], "kind": "sharded", "backend": backend_for("cuda", 1), "ranks": 1, "frames": 4,
+               "shared_card": False, "equals": "Detector.match_batch_arrays on the card", "launches_by_rank": [nccl["launches"]],
+               "ms": nccl["ms"], "merge_ms": nccl["merge_ms"], "rank0_profile": nccl["profile"]}]
+
+    jobs = parallel_jobs(cid, det, frames, depths, w_ms, PARALLEL_REPS)
+    backend = backend_for("cuda", 4)  # gloo on one card; NCCL where each rank has a card of its own
+    card = run_ranks(run_jobs, 4, ("cuda", [dict(j, profile=PARALLEL_PROFILE) for j in jobs]), device_type="cuda",
+                     timeout=PARALLEL_TIMEOUT)
+    cpu = run_ranks(run_jobs, 4, ("cpu", [dict(j, reps=0) for j in jobs]), device_type="cpu",
+                    timeout=PARALLEL_TIMEOUT, threads=PARALLEL_CPU_THREADS)
+    for i, job in enumerate(jobs):
+        what = f"{job['kind']} mesh {job['mesh']}"
+        ranks = [r for r in range(4) if card[r][i] is not None]
+        check(len(ranks) == int(np.prod(job["mesh"])), f"{what}: {len(ranks)} card ranks answered")
+        check(all((card[r][i] is None) == (cpu[r][i] is None) for r in range(4)),
+              f"{what}: the card and CPU runs answered from different ranks")
+        for r in ranks:
+            check(all(np.array_equal(a, b) for a, b in zip(card[r][i]["outputs"], cpu[r][i]["outputs"])),
+                  f"{what}: rank {r} on the card differs from the CPU ranks")
+            check(card[r][i]["launches"] > 0, f"{what}: rank {r} launched no refine kernel")
+        out = card[0][i]["outputs"]
+        meshes.append({
+            "mesh": list(job["mesh"]), "kind": job["kind"], "backend": backend, "ranks": len(ranks),
+            "frames": len(job["rgb"]) if job["kind"] == "sharded" else 1, "shared_card": backend == "gloo",
+            "equals": "the same mesh in CPU ranks (gloo)",
+            "launches_by_rank": [card[r][i]["launches"] for r in ranks], "ms": card[0][i]["ms"],
+            "merge_ms": card[0][i]["merge_ms"], "rank0_profile": card[0][i]["profile"],
+            "live_candidates": int((out[3] >= 0).sum()),
+        })
+    launches = sum(sum(m["launches_by_rank"]) for m in meshes)
+    emit("parallel", t0, meshes=meshes, launches=launches, reps=PARALLEL_REPS, threshold=LOW_THRESHOLD,
+         note="ms: CUDA events on rank 0 per step; merge_ms: the merge's all_gather alone; rank0_profile: rank 0's "
+              "own kernel time, profiled wall time and kernels per step under torch.profiler; ranks sharing one "
+              "card share its time, so their rows carry no efficiency")
+    return {"launches": launches, "meshes": meshes}
+
+
+# -- the SIXD tool twins (tools/) -------------------------------------------------
+
+TOOLS_IM = (240, 180)
+TOOLS_K = np.array([[240.0, 0, 120.0], [0, 240.0, 90.0], [0, 0, 1.0]])
+TOOLS_RADIUS = 430.0
+TOOLS_VIEWS = 60
+TOOLS_CPU_THREADS = 6
+
+
+def tools_scene():
+    """Two views of the textured box at known poses (the mini-SIXD scene of
+    tests/test_tools.py), rendered on the CPU: [(rgb, depth, gt)]."""
+    model = TB.make_models()["texbox"]
+    views, _ = sample_views(8, radius=TOOLS_RADIUS, elev_range=(0.3, 1.2), tilt_range=(0, 0.1), tilt_step=1.0)
+    out = []
+    for view in views[:2]:
+        t = view["t"] + np.array([[10.0], [-5.0], [15.0]])
+        rgb, depth = GR.render(model, TOOLS_IM, TOOLS_K, view["R"], t, mode="rgb+depth", texture=model["texture"],
+                               device="cpu")
+        out.append((rgb.numpy(), depth.numpy().astype(np.uint16), {"obj_id": 1, "cam_R_m2c": view["R"], "cam_t_m2c": t}))
+    return out
+
+
+def tools_chain(device, scene) -> dict:
+    """The twins' compute on ``device``: ``train_object`` (the textured box,
+    ``TOOLS_VIEWS`` views, 24 features), the bank through its npz and
+    ``DetectorConfig()`` as ``detect_sixd`` reads it, ``detect_image`` on
+    each view, ``image_errors`` (ADI) and ``localization_scores``."""
+    model = TB.make_models()["texbox"]
+    LR.similarity_local_sparse_cuda.launches = 0
+    det, stats = tools_train.train_object(model, TOOLS_K, "obj_01", [TOOLS_RADIUS], TOOLS_VIEWS, TOOLS_IM,
+                                          tools_train.detector_config(24), device)
+    with tempfile.TemporaryDirectory() as tmp:
+        det.write_classes(os.path.join(tmp, "obj_01.npz"))
+        det = Detector.read_classes(os.path.join(tmp, "obj_01.npz"), DetectorConfig(), device=device)
+    results, errors = [], []
+    for im_id, (rgb, depth, gt) in enumerate(scene):
+        res, _ = tools_detect.detect_image(det, model, rgb, depth, TOOLS_K, 60.0, 8, device)
+        results.append(res["ests"])
+        errors += tools_errors.image_errors(im_id, 1, res["ests"], [gt], model, None, TOOLS_K, "adi", device=device)
+    gts = {im_id: [gt] for im_id, (_, _, gt) in enumerate(scene)}
+    scores = tools_loc.localization_scores([(1, errors, gts, {})], "adi", {1: model_diameter(model["pts"])})
+    return {"stats": stats, "templates": [[(lv.features, lv.width, lv.height) for lv in t]
+                                          for t in det.bank.templates["obj_01"]],
+            "ests": results, "errors": errors, "recall": scores["all"]["total_recall"],
+            "launches": LR.similarity_local_sparse_cuda.launches}
+
+
+def phase_tools(dev) -> dict:
+    """The tool twins' compute on the card against the port's CPU run (a
+    spawned worker): the same templates, estimates within ``FUSED_TOL``
+    (scores exactly), ADI errors within its t tolerance, the same recall;
+    the refine kernel's launches (set to 0 just before, read just after)."""
+    t0 = time.perf_counter()
+    scene = tools_scene()
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"),
+                               initializer=torch.set_num_threads, initargs=(TOOLS_CPU_THREADS,))
+    try:
+        cpu_run = pool.submit(tools_chain, "cpu", scene)
+        w0 = time.perf_counter()
+        card = tools_chain(dev, scene)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - w0
+        cpu = cpu_run.result(timeout=PARALLEL_TIMEOUT)
+    finally:
+        pool.shutdown(cancel_futures=True)
+    same_templates = len(card["templates"]) == len(cpu["templates"]) and all(
+        np.array_equal(fa, fb) and (wa, ha) == (wb, hb)
+        for a, b in zip(card["templates"], cpu["templates"]) for (fa, wa, ha), (fb, wb, hb) in zip(a, b))
+    check(same_templates and card["stats"] == cpu["stats"], f"training on the card differs: {card['stats']} {cpu['stats']}")
+    est_diff = {"R": 0.0, "t_mm": 0.0}
+    for ea, eb in zip(card["ests"], cpu["ests"]):
+        check(len(ea) == len(eb) and [e["score"] for e in ea] == [e["score"] for e in eb],
+              "the card's estimates differ from the CPU's in count or score")
+        for a, b in zip(ea, eb):
+            est_diff["R"] = max(est_diff["R"], float(np.abs(np.asarray(a["R"]) - np.asarray(b["R"])).max()))
+            est_diff["t_mm"] = max(est_diff["t_mm"], float(np.abs(np.asarray(a["t"]) - np.asarray(b["t"])).max()))
+    check(est_diff["R"] <= FUSED_TOL["R"] and est_diff["t_mm"] <= FUSED_TOL["t_mm"], f"estimates differ: {est_diff}")
+    err_diff = max(abs(a["errors"][0] - b["errors"][0]) for a, b in zip(card["errors"], cpu["errors"]))
+    check(len(card["errors"]) == len(cpu["errors"]) == len(scene) and err_diff <= FUSED_TOL["t_mm"],
+          f"ADI errors differ by {err_diff} mm")
+    check(card["recall"] == cpu["recall"], f"recall {card['recall']} on the card, {cpu['recall']} on the CPU")
+    check(card["launches"] > 0, "the twins' detection did not launch the refine kernel")
+    emit("tools", t0, train=card["stats"], templates=len(card["templates"]), recall=card["recall"],
+         adi_mm=[e["errors"][0] for e in card["errors"]], estimates_diff=est_diff, adi_diff_mm=err_diff,
+         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s)
+    return {"launches": card["launches"], "recall": card["recall"]}
+
+
+def parallel_only(dev, smi: str) -> int:
+    """``python3 chip_smoke.py parallel``: only the ``parallel`` phase and,
+    with two or more cards, ``tools.bench_scaling`` over them on the bench
+    workload (weak scaling, B = 4 a rank, NCCL, each rank a card).  On a
+    host with four cards the phase's four ranks each get a card of their
+    own over NCCL."""
+    cid, det, _, frames, depths = bench_detectors(dev)
+    phase_parallel(dev, cid, det, frames, depths, synthetic.multiscale_workload(classes=1))
+    n = torch.cuda.device_count()
+    if n >= 2:
+        t0 = time.perf_counter()
+        sizes = [s for s in (1, 2, 4, 8) if s <= n]
+        workload = tools_scaling.bench_workload(frames_per_dev=4)
+        res = run_ranks(tools_scaling.scaling_rank, max(sizes), ("cuda",) + workload + (sizes, SCALING_ITERS),
+                        device_type="cuda", timeout=PARALLEL_TIMEOUT)[0]
+        emit("scaling", t0, rows=tools_scaling.scaling_rows(res, "cuda", max(sizes)), workload="bench",
+             hw=list(workload[2].shape[1:3]), templates=len(workload[1][0].nfeat), depth=True, frames_per_rank=4,
+             threshold=workload[4], iters=SCALING_ITERS)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -2463,6 +2694,8 @@ def main() -> int:
     built = _build.build()
     ptxas = {n: ptxas_summary(b["log"]) for n, b in built.items()}
     emit("build", t0, kernels={n: {"seconds": round(b["seconds"], 3), "ptxas": ptxas[n]} for n, b in built.items()})
+    if sys.argv[1:] == ["parallel"]:
+        return parallel_only(dev, smi)
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
@@ -2489,6 +2722,8 @@ def main() -> int:
     seg_launches, seg_kernels = phase_seg(dev)
     t0 = time.perf_counter()
     emit("seg_golden", t0, **phase_seg_golden(dev))
+    parallel = phase_parallel(dev, cid, det, frames, depths, w_ms)
+    tools = phase_tools(dev)
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -2518,7 +2753,8 @@ def main() -> int:
     phase_profile("profile_synth", lambda: svc.process_frame(rgb_s, dep_s))
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
                 "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
-                "synth": synth_launches, "lchf": lchf_launches, "seg": seg_launches["local_refine"]}
+                "synth": synth_launches, "lchf": lchf_launches, "seg": seg_launches["local_refine"],
+                "parallel": parallel["launches"], "tools": tools["launches"]}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 

@@ -1,0 +1,21 @@
+"""The SIXD tools and benchmarks of the JAX package's ``tools/``, as
+modules of the port: ``python -m sixdpose_tpu_torch.tools.<name>`` with
+the JAX tool's flags (and ``--device``, CUDA unless ``cpu``) and its
+output files.
+
+Each twin is a compute function on arrays and a file layer (``main``) that
+reads and writes the dataset's files, so a machine without ``yaml`` and
+``PIL`` can still run the compute:
+
+- ``train_templates``: ``train_object`` renders a view sphere and trains a
+  bank;
+- ``detect_sixd``: ``detect_image`` serves one test image;
+- ``calc_gt_stats``: ``visib_stats`` measures each ground-truth pose's
+  visible fraction;
+- ``eval_calc_errors``: ``image_errors`` scores the estimates of one image;
+- ``eval_loc``: ``localization_scores`` matches errors to ground truth and
+  gives the recall;
+- ``bench_multiscale_multiclass``: the multi-scale sweep on
+  ``synthetic.multiscale_workload``;
+- ``bench_scaling``: data-parallel scaling over ``parallel``.
+"""

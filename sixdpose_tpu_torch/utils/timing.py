@@ -86,3 +86,41 @@ def block(tree):
     for dev in {t.device for t in _tensors(tree) if t.device.type == "cuda"}:
         torch.cuda.synchronize(dev)
     return tree
+
+
+def ms_per_call(fn, reps: int, device) -> float:
+    """Milliseconds per call of ``fn`` over ``reps`` back-to-back calls: CUDA
+    events around them on a card, the host clock on the CPU.  Warm up
+    first."""
+    if torch.device(device).type == "cuda":
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / reps
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def device_ms_per_call(fn, reps: int) -> dict:
+    """This process's device time per call of ``fn`` on the card and the
+    wall time per call, over ``reps`` calls under ``torch.profiler`` (the
+    sum of kernel self times: one stream, so they do not overlap; the
+    profiler lengthens the wall time).  Warm up first."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    rows = [r for r in prof.key_averages() if r.device_type == DeviceType.CUDA]
+    device = sum(getattr(r, "self_device_time_total", 0.0) for r in rows) / 1e3 / reps
+    return {"device_ms": device, "wall_ms": wall, "kernels": sum(r.count for r in rows) / reps}

@@ -723,3 +723,59 @@ def test_slic_and_asp_on_card_equal_cpu(cuda):
         assert np.array_equal(a, b)
         for k in sa:
             assert np.array_equal(sa[k], sb[k]), k
+
+
+# -- multi-device matching (parallel/) ----------------------------------------------
+
+
+def _parallel_case(n_templates=12):
+    from sixdpose_tpu_torch.models.detector import Detector as TDetector
+
+    cid, templates, rgb, dep = synthetic.bench_bank(num_templates=n_templates)
+    det = TDetector(DetectorConfig(t_at_level=(5, 8)), device="cpu")
+    for tl in templates:
+        det.bank.add_template_levels(cid, tl)
+    frames = np.stack([rgb ^ np.uint8(i) for i in range(4)])
+    return cid, det, frames, np.stack([dep] * 4)
+
+
+def test_nccl_mesh_of_one_equals_match_batch(cuda):
+    """Mesh (1, 1, 1), one rank over NCCL: ``sharded_detect`` equals
+    ``Detector.match_batch_arrays`` on the card, and launches the kernel."""
+    from sixdpose_tpu_torch.parallel.distributed import backend_for, run_ranks
+    from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
+
+    cid, det, frames, depths = _parallel_case()
+    job = dict(kind="sharded", mesh=(1, 1, 1), levels=det.bank.finalized(cid), rgb=frames, depth=depths,
+               cfg=det.cfg, threshold=30.0)
+    assert backend_for("cuda", 1) == "nccl"
+    (res,) = run_ranks(run_jobs, 1, ("cuda", [job]), device_type="cuda", timeout=300)[0]
+    card = Detector(det.cfg, device=cuda)
+    card.bank = det.bank
+    ref = card.match_batch_arrays(frames, depths, 30.0, cid)
+    for a, b in zip(res["outputs"], ref):
+        np.testing.assert_array_equal(a, b.cpu().numpy())
+    assert res["launches"] > 0
+
+
+def test_ranks_sharing_the_card_equal_cpu_ranks(cuda):
+    """Four ranks on the one card over gloo against four CPU ranks, to the
+    bit."""
+    from sixdpose_tpu_torch.parallel.distributed import run_ranks
+    from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
+
+    cid, det, frames, depths = _parallel_case()
+    levels = det.bank.finalized(cid)
+    jobs = [dict(kind="sharded", mesh=(2, 2, 1), levels=levels, rgb=frames, depth=depths, cfg=det.cfg, threshold=30.0),
+            dict(kind="tiled", mesh=(1, 1, 2), levels=levels, rgb=frames[0], depth=depths[0], cfg=det.cfg,
+                 threshold=30.0)]
+    card = run_ranks(run_jobs, 4, ("cuda", jobs), device_type="cuda", timeout=300)
+    cpu = run_ranks(run_jobs, 4, ("cpu", jobs), device_type="cpu", timeout=300)
+    for i in range(len(jobs)):
+        for r in range(4):
+            if card[r][i] is None:
+                assert cpu[r][i] is None
+                continue
+            assert card[r][i]["launches"] > 0
+            for a, b in zip(card[r][i]["outputs"], cpu[r][i]["outputs"]):
+                np.testing.assert_array_equal(a, b)

@@ -63,7 +63,11 @@ def test_port_imports_without_jax():
                  "eval.pose_error", "eval.score", "eval.loc", "models.train", "utils.timing", "serving", "benchmark",
                  "lchf", "lchf.feature", "lchf.forest", "lchf.meanshift", "lchf.device", "lchf.model", "lchf.voting",
                  "lchf.pose", "lchf.eval", "lchf.pipeline", "data", "data.inout", "data.datasets", "utils.artifacts",
-                 "seg", "seg.dasp", "seg.registration", "seg.slic", "ops.segment_sum", "ops.floyd_steinberg"):
+                 "seg", "seg.dasp", "seg.registration", "seg.slic", "ops.segment_sum", "ops.floyd_steinberg",
+                 "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharded_match", "parallel.tiled_match",
+                 "parallel.rank_jobs", "tools", "tools.train_templates", "tools.detect_sixd", "tools.calc_gt_stats",
+                 "tools.eval_calc_errors", "tools.eval_loc", "tools.bench_multiscale_multiclass",
+                 "tools.bench_scaling"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 
