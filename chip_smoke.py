@@ -42,10 +42,12 @@ Drives the port's main paths, and checks every result:
   ``pose_estimation`` defaults; ``synthetic.bin_picking_scene``: the nine
   meshes 450-600 mm away over a tilted floor): ``convex_cloud_seg`` and
   each object's ``pose_estimation``;
-- at the full width of the bench workload and of one class of the
-  multi-scale sweep, over several ranks: the ``parallel`` entry points
-  (``sharded_detect``, ``tiled_detect``, ``sharded_multiscale_detect``)
-  on ranks that share the one card;
+- at the full width of the bench workload, of one class of the
+  multi-scale sweep, and of the multi-class and multi-scale workloads,
+  over several ranks: the ``parallel`` entry points (``sharded_detect``,
+  ``tiled_detect``, ``sharded_multiscale_detect``, and over ``data``
+  ``sharded_detect_refine``, ``fused_multiclass_over_data`` and
+  ``multiscale_multiclass_over_data``) on ranks that share the one card;
 - the SIXD tool twins (``sixdpose_tpu_torch/tools``) at the mini-SIXD size
   of the JAX package's tool test (240 x 180, one object, two test views).
 
@@ -149,13 +151,20 @@ non-zero:
    320 x 240;
 18. parallel: the ``parallel`` entry points on the bench batch and one
    multi-scale class: mesh (1, 1, 1) over NCCL equal to
-   ``Detector.match_batch_arrays``; data 2 x template 2, tile 2 and
-   template-2 multi-scale on four ranks sharing the card over gloo, each
-   equal to four CPU ranks; refine launches per rank; rank 0's ms per step
-   and per merge collective (CUDA events) and its device ms per step
-   (torch.profiler);
+   ``Detector.match_batch_arrays``; data 2 x template 2, tile 2,
+   template-2 multi-scale and data 2 x template 2 detection with ICP of
+   every candidate (``detect_icp``) on four ranks sharing the card over
+   gloo, each equal to four CPU ranks; in a second spawn, the fused
+   multi-class frame (``fused_mc``, the multi-class workload) and the
+   multi-scale multi-class frame (``fused_ms``, the multi-scale workload)
+   at data 4 on four frames, each rank's frames equal to the
+   single-process card pipeline to the bit; refine launches per rank;
+   rank 0's ms per step and per merge collective (CUDA events) and its
+   device ms per step (torch.profiler); each rank's peak device memory;
 19. tools: the tool twins' compute (train, detect, ADI errors, recall) on
-   the card against the same chain on the CPU;
+   the card against the same chain on the CPU, and ``vis_poses``'
+   overlays of the ground truth and of the estimates, the card's equal to
+   the CPU's byte for byte;
 20. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
@@ -206,9 +215,11 @@ and the ranks talk over NCCL.
 
 from __future__ import annotations
 
+import io
 import json
 import multiprocessing
 import os
+import pickle
 import re
 import shutil
 import statistics
@@ -299,6 +310,7 @@ from sixdpose_tpu_torch.tools import eval_calc_errors as tools_errors
 from sixdpose_tpu_torch.tools import bench_scaling as tools_scaling
 from sixdpose_tpu_torch.tools import eval_loc as tools_loc
 from sixdpose_tpu_torch.tools import train_templates as tools_train
+from sixdpose_tpu_torch.tools import vis_poses as tools_vis
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TESTDATA = os.path.join(ROOT, "sixdpose_tpu_torch", "testdata")
@@ -2479,6 +2491,49 @@ PARALLEL_TIMEOUT = 300.0  # seconds for each spawn of ranks; a rank that fails o
 PARALLEL_CPU_THREADS = 2  # four CPU ranks on the machine's eight cores
 PARALLEL_PROFILE = 3  # steps rank 0 profiles for its device time
 SCALING_ITERS = 20
+FUSED_KINDS = ("fused_mc", "fused_ms")  # held against the single-process pipeline on the card, not CPU ranks
+FRAME_SEEDS = (1, 2, 3)  # the fused jobs' frames beyond each workload's own
+ICP_PLANE_M = 0.9  # the bench frame's plane: where detect_icp starts every candidate
+
+
+def workload_batch(w, draw):
+    """(rgb, depth), each (4, ...): the workload's frame and three drawn as
+    it draws its frame, from ``FRAME_SEEDS``."""
+    frames = [(w["rgb"], w["depth"])] + [draw(seed) for seed in FRAME_SEEDS]
+    return np.stack([f[0] for f in frames]), np.stack([f[1] for f in frames])
+
+
+def fused_parallel_jobs(cid, det, frames, depths, w_mc, w_ms, reps: int) -> list:
+    """The data-parallel fused jobs at full width, all at LOW_THRESHOLD:
+    ``detect_icp`` at data 2 x template 2 on the bench batch (bench.py's
+    refine stage: its first 512-point cloud, 16 ICP iterations, every
+    candidate from the bench plane), ``fused_mc`` at data 4 on the
+    multi-class workload (9 x 810 templates, 96 hypotheses x 4 seeds a
+    class) and ``fused_ms`` at data 4 on the multi-scale workload (15 x 337
+    templates, 5 proposals), each on four frames (``workload_batch``)."""
+    b = synthetic.bench_refine_bank(det.bank.finalized(cid)[0].wh)
+    init_T = np.tile(np.eye(4, dtype=np.float32), (BENCH_CFG.top_k, 1, 1))
+    init_T[:, 2, 3] = ICP_PLANE_M
+    rgb_mc, dep_mc = workload_batch(w_mc, synthetic.multiclass_frame)
+    rgb_ms, dep_ms = workload_batch(w_ms, synthetic.multiscale_frame)
+    common = dict(threshold=LOW_THRESHOLD, reps=reps)
+    return [
+        dict(kind="detect_icp", mesh=(2, 2, 1), levels=det.bank.finalized(cid), rgb=frames, depth=depths,
+             cfg=BENCH_CFG, model_pts=b["fields"][0][0], K=b["K"], init_T=init_T, icp=b["icp"], **common),
+        dict(kind="fused_mc", mesh=(4, 1, 1), class_ids=w_mc["class_ids"], templates=w_mc["templates"],
+             infos=w_mc["infos"], K=w_mc["K"], pipeline=synthetic.multiclass_pipeline_args(w_mc), rgb=rgb_mc,
+             depth=dep_mc, cfg=w_mc["cfg"], **common),
+        dict(kind="fused_ms", mesh=(4, 1, 1), class_ids=w_ms["class_ids"], templates=w_ms["templates"],
+             train_depth=w_ms["train_depth"], num_scales=w_ms["num_scales"], rgb=rgb_ms, depth=dep_ms,
+             cfg=w_ms["cfg"], **common),
+    ]
+
+
+def fused_reference(job, pipe, ms_card) -> list:
+    """The single-process card pipeline on each of a fused job's frames:
+    ``FusedMultiClassPipeline`` or ``MultiScaleMultiClass``, as numpy."""
+    run = pipe if job["kind"] == "fused_mc" else ms_card.match_arrays
+    return [[a.cpu().numpy() for a in run(rgb, dep, job["threshold"])] for rgb, dep in zip(job["rgb"], job["depth"])]
 
 
 def parallel_jobs(cid, det, frames, depths, w_ms, reps: int) -> list:
@@ -2496,24 +2551,33 @@ def parallel_jobs(cid, det, frames, depths, w_ms, reps: int) -> list:
     ]
 
 
-def phase_parallel(dev, cid, det, frames, depths, w_ms) -> dict:
+def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> dict:
     """The ``parallel`` entry points at full width, each rank a spawned
     process (``run_ranks``, joined under ``PARALLEL_TIMEOUT``):
 
     - mesh (1, 1, 1), one rank over NCCL: ``sharded_detect`` on the bench
       batch (B = 4) equal to ``Detector.match_batch_arrays`` on the card;
     - four ranks sharing the card over gloo: ``sharded_detect`` at data 2 x
-      template 2 (B = 4), ``tiled_detect`` at tile 2 (one frame) and
+      template 2 (B = 4), ``tiled_detect`` at tile 2 (one frame),
       ``sharded_multiscale_detect`` at template 2 (one frame, 337
-      templates), each equal to the same mesh in four CPU ranks: the same
-      ranks answer on both sides, and exactly the mesh's ranks answer.
+      templates) and ``sharded_detect_refine`` at data 2 x template 2
+      (B = 4, 128 candidates a frame through ICP), each equal to the same
+      mesh in four CPU ranks: the same ranks answer on both sides, and
+      exactly the mesh's ranks answer;
+    - in a second spawn of the four ranks, beside ``detect_icp``,
+      ``fused_multiclass_over_data`` and ``multiscale_multiclass_over_data``
+      at data 4 (B = 4, one frame a rank), every rank's full batch equal
+      frame by frame to the
+      single-process ``pipe`` and ``ms_card`` on the card, to the bit, and
+      the fused frame's inactive hypotheses at -1 in fitness and verify.
 
     Each rank sets its local-refine launch count to 0 just before its job's
     first step and reads it just after; every card rank of every mesh must
     have launched the kernel.  Rank 0 times each step and its merge
     collective alone with CUDA events, then profiles ``PARALLEL_PROFILE``
     steps for its own device time (the rest of the step is the rank's host
-    work and waits); the rows of ranks sharing the card carry no
+    work and waits); each card rank reports its peak of allocated device
+    memory in the job.  The rows of ranks sharing the card carry no
     efficiency."""
     t0 = time.perf_counter()
     levels = det.bank.finalized(cid)
@@ -2526,38 +2590,82 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms) -> dict:
     check(nccl["launches"] > 0, "the (1, 1, 1) mesh did not launch the refine kernel")
     meshes = [{"mesh": [1, 1, 1], "kind": "sharded", "backend": backend_for("cuda", 1), "ranks": 1, "frames": 4,
                "shared_card": False, "equals": "Detector.match_batch_arrays on the card", "launches_by_rank": [nccl["launches"]],
-               "ms": nccl["ms"], "merge_ms": nccl["merge_ms"], "rank0_profile": nccl["profile"]}]
+               "ms": nccl["ms"], "merge_ms": nccl["merge_ms"], "rank0_profile": nccl["profile"],
+               "peak_mib_by_rank": [nccl["peak_bytes"] / 2**20]}]
 
-    jobs = parallel_jobs(cid, det, frames, depths, w_ms, PARALLEL_REPS)
+    matching = parallel_jobs(cid, det, frames, depths, w_ms, PARALLEL_REPS)
+    fused = fused_parallel_jobs(cid, det, frames, depths, w_mc, w_ms, PARALLEL_REPS)
+    jobs = matching + fused
     backend = backend_for("cuda", 4)  # gloo on one card; NCCL where each rank has a card of its own
-    card = run_ranks(run_jobs, 4, ("cuda", [dict(j, profile=PARALLEL_PROFILE) for j in jobs]), device_type="cuda",
-                     timeout=PARALLEL_TIMEOUT)
-    cpu = run_ranks(run_jobs, 4, ("cpu", [dict(j, reps=0) for j in jobs]), device_type="cpu",
-                    timeout=PARALLEL_TIMEOUT, threads=PARALLEL_CPU_THREADS)
+    s0 = time.perf_counter()
+    # Two spawns of three meshes each: over NCCL on four cards, ranks holding
+    # six meshes' communicators hung in their teardown.
+    card = [a + b for a, b in zip(*(
+        run_ranks(run_jobs, 4, ("cuda", [dict(j, profile=PARALLEL_PROFILE) for j in part]), device_type="cuda",
+                  timeout=PARALLEL_TIMEOUT) for part in (matching, fused)))]
+    card_s = time.perf_counter() - s0
+    on_cpu = [i for i, j in enumerate(jobs) if j["kind"] not in FUSED_KINDS]
+    s0 = time.perf_counter()
+    cpu_runs = run_ranks(run_jobs, 4, ("cpu", [dict(jobs[i], reps=0) for i in on_cpu]), device_type="cpu",
+                         timeout=PARALLEL_TIMEOUT, threads=PARALLEL_CPU_THREADS)
+    cpu_s = time.perf_counter() - s0
+    cpu = [{i: r[n] for n, i in enumerate(on_cpu)} for r in cpu_runs]
     for i, job in enumerate(jobs):
         what = f"{job['kind']} mesh {job['mesh']}"
         ranks = [r for r in range(4) if card[r][i] is not None]
         check(len(ranks) == int(np.prod(job["mesh"])), f"{what}: {len(ranks)} card ranks answered")
-        check(all((card[r][i] is None) == (cpu[r][i] is None) for r in range(4)),
-              f"{what}: the card and CPU runs answered from different ranks")
         for r in ranks:
-            check(all(np.array_equal(a, b) for a, b in zip(card[r][i]["outputs"], cpu[r][i]["outputs"])),
-                  f"{what}: rank {r} on the card differs from the CPU ranks")
             check(card[r][i]["launches"] > 0, f"{what}: rank {r} launched no refine kernel")
-        out = card[0][i]["outputs"]
+        if job["kind"] in FUSED_KINDS:
+            s0 = time.perf_counter()
+            want = fused_reference(job, pipe, ms_card)
+            ref_s = time.perf_counter() - s0
+            for r in ranks:
+                got = card[r][i]["outputs"]
+                for f, frame in enumerate(want):
+                    check(all(np.array_equal(a[f], b) for a, b in zip(got, frame)),
+                          f"{what}: rank {r}'s frame {f} differs from the single-process card pipeline")
+            out = card[0][i]["outputs"]
+            equals = "the single-process card pipeline, frame by frame (bitwise)"
+            if job["kind"] == "fused_mc":
+                inactive = ~out[8]
+                check(bool((out[6][inactive] == -1).all() and (out[7][inactive] == -1).all()),
+                      f"{what}: an inactive hypothesis does not read -1")
+                extra = {"active": int(out[8].sum()), "hypotheses": int(out[8].size),
+                         "icp_candidates_per_frame": int(out[8][0].size) * job["pipeline"]["icp_seeds"]}
+            else:
+                extra = {"live_candidates": int((out[3] >= 0).sum())}
+            extra.update(reference_seconds=ref_s, job_pickle_mib=len(pickle.dumps(job)) / 2**20)
+        else:
+            check(all((card[r][i] is None) == (cpu[r][i] is None) for r in range(4)),
+                  f"{what}: the card and CPU runs answered from different ranks")
+            for r in ranks:
+                check(all(np.array_equal(a, b) for a, b in zip(card[r][i]["outputs"], cpu[r][i]["outputs"])),
+                      f"{what}: rank {r} on the card differs from the CPU ranks")
+            out = card[0][i]["outputs"]
+            equals = "the same mesh in CPU ranks (gloo)"
+            extra = {"live_candidates": int((out[3] >= 0).sum())}
+            if job["kind"] == "detect_icp":
+                extra.update(icp_candidates_per_frame=int(out[5].shape[1]), fitness_mean=float(out[6].mean()))
+        prof = card[0][i]["profile"]
         meshes.append({
             "mesh": list(job["mesh"]), "kind": job["kind"], "backend": backend, "ranks": len(ranks),
-            "frames": len(job["rgb"]) if job["kind"] == "sharded" else 1, "shared_card": backend == "gloo",
-            "equals": "the same mesh in CPU ranks (gloo)",
+            "frames": len(job["rgb"]) if job["kind"] not in ("tiled", "multiscale") else 1,
+            "shared_card": backend == "gloo", "equals": equals,
             "launches_by_rank": [card[r][i]["launches"] for r in ranks], "ms": card[0][i]["ms"],
-            "merge_ms": card[0][i]["merge_ms"], "rank0_profile": card[0][i]["profile"],
-            "live_candidates": int((out[3] >= 0).sum()),
+            "merge_ms": card[0][i]["merge_ms"], "rank0_profile": prof,
+            "rank0_idle_share": 1.0 - prof["device_ms"] / prof["wall_ms"],
+            "peak_mib_by_rank": [card[r][i]["peak_bytes"] / 2**20 for r in ranks],
+            "rank0_setup_s": card[0][i]["setup_s"], "rank0_first_step_s": card[0][i]["first_step_s"],
+            "rank0_job_s": card[0][i]["job_s"], **extra,
         })
     launches = sum(sum(m["launches_by_rank"]) for m in meshes)
     emit("parallel", t0, meshes=meshes, launches=launches, reps=PARALLEL_REPS, threshold=LOW_THRESHOLD,
-         note="ms: CUDA events on rank 0 per step; merge_ms: the merge's all_gather alone; rank0_profile: rank 0's "
-              "own kernel time, profiled wall time and kernels per step under torch.profiler; ranks sharing one "
-              "card share its time, so their rows carry no efficiency")
+         card_spawn_seconds=card_s, cpu_spawn_seconds=cpu_s,
+         note="ms: CUDA events on rank 0 per step; merge_ms: the merge's all_gather alone (over data for "
+              "detect_icp, fused_mc and fused_ms); rank0_profile: rank 0's own kernel time, profiled wall time and "
+              "kernels per step under torch.profiler; peak_mib_by_rank: torch.cuda.max_memory_allocated in the job; "
+              "ranks sharing one card share its time, so their rows carry no efficiency")
     return {"launches": launches, "meshes": meshes}
 
 
@@ -2609,6 +2717,37 @@ def tools_chain(device, scene) -> dict:
             "launches": LR.similarity_local_sparse_cuda.launches}
 
 
+def png_bytes(im: np.ndarray):
+    """``im`` encoded as ``inout.save_im`` writes it, or None without PIL."""
+    try:
+        from PIL import Image
+    except ImportError:
+        return None
+    buf = io.BytesIO()
+    Image.fromarray(im).save(buf, format="png")
+    return buf.getvalue()
+
+
+def vis_overlays(dev, scene, ests) -> dict:
+    """``vis_poses.overlay`` of each view's ground truth and of the CPU
+    chain's estimates on the card and on the CPU: equal images, and equal
+    PNG bytes where PIL is present."""
+    models = {1: TB.make_models()["texbox"]}
+    poses = [[(1, gt["cam_R_m2c"], gt["cam_t_m2c"])] for _, _, gt in scene]
+    poses += [[(1, e["R"], e["t"]) for e in view_ests] for view_ests in ests]
+    images = [rgb for rgb, _, _ in scene] * 2
+    card = [tools_vis.overlay(rgb, p, models, TOOLS_K, 0.5, dev) for rgb, p in zip(images, poses)]
+    cpu = [tools_vis.overlay(rgb, p, models, TOOLS_K, 0.5, "cpu") for rgb, p in zip(images, poses)]
+    check(all(np.array_equal(a, b) for a, b in zip(card, cpu)), "vis_poses' overlays on the card differ from the CPU's")
+    drawn = [int((a != rgb).any(axis=-1).sum()) for a, rgb in zip(card, images)]
+    check(min(drawn) > 500, f"vis_poses drew no silhouette: {drawn} pixels changed")
+    pngs = [(png_bytes(a), png_bytes(b)) for a, b in zip(card, cpu)]
+    same_png = None if pngs[0][0] is None else all(a == b for a, b in pngs)
+    check(same_png is not False, "vis_poses' PNGs on the card differ from the CPU's")
+    return {"overlays": len(card), "gt_and_estimates": True, "pixels_drawn": drawn, "card_equals_cpu": True,
+            "png_bytes_equal": same_png}
+
+
 def phase_tools(dev) -> dict:
     """The tool twins' compute on the card against the port's CPU run (a
     spawned worker): the same templates, estimates within ``FUSED_TOL``
@@ -2644,9 +2783,10 @@ def phase_tools(dev) -> dict:
           f"ADI errors differ by {err_diff} mm")
     check(card["recall"] == cpu["recall"], f"recall {card['recall']} on the card, {cpu['recall']} on the CPU")
     check(card["launches"] > 0, "the twins' detection did not launch the refine kernel")
+    vis = vis_overlays(dev, scene, cpu["ests"])
     emit("tools", t0, train=card["stats"], templates=len(card["templates"]), recall=card["recall"],
          adi_mm=[e["errors"][0] for e in card["errors"]], estimates_diff=est_diff, adi_diff_mm=err_diff,
-         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s)
+         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s, vis_poses=vis)
     return {"launches": card["launches"], "recall": card["recall"]}
 
 
@@ -2657,7 +2797,13 @@ def parallel_only(dev, smi: str) -> int:
     host with four cards the phase's four ranks each get a card of their
     own over NCCL."""
     cid, det, _, frames, depths = bench_detectors(dev)
-    phase_parallel(dev, cid, det, frames, depths, synthetic.multiscale_workload(classes=1))
+    w_mc = synthetic.multiclass_workload()
+    pipe = FusedMultiClassPipeline(synthetic.multiclass_detector(w_mc, dev), w_mc["K"], device=dev,
+                                   **synthetic.multiclass_pipeline_args(w_mc))
+    w_ms = synthetic.multiscale_workload()
+    ms_card = MultiScaleMultiClass(synthetic.multiscale_detector(w_ms, dev), w_ms["train_depth"],
+                                   num_scales=w_ms["num_scales"], device=dev)
+    phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card)
     n = torch.cuda.device_count()
     if n >= 2:
         t0 = time.perf_counter()
@@ -2722,7 +2868,7 @@ def main() -> int:
     seg_launches, seg_kernels = phase_seg(dev)
     t0 = time.perf_counter()
     emit("seg_golden", t0, **phase_seg_golden(dev))
-    parallel = phase_parallel(dev, cid, det, frames, depths, w_ms)
+    parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
     tools = phase_tools(dev)
     stages = svc.metrics.snapshot()["stages"]
     synth = {

@@ -543,9 +543,11 @@ class FusedMultiClassPipeline:
     ``device="cpu"`` for the CPU.  Every class's templates must carry the
     train-time refine infos (as for ``FusedPipeline``); ``verify_pts`` maps
     each class id to its (P, 3) model surface points in mm, and
-    ``verify_colors`` optionally to their colours.  The superbank, the
-    global refine bank and the padded verification points are uploaded
-    once, here.
+    ``verify_colors`` optionally to their colours.  ``refine_bank``, a
+    global ``RefineBank`` in the superbank's template order on ``device``
+    (``convert.refine_bank_from_numpy``), takes the place of the one built
+    from those infos.  The superbank, the global refine bank and the padded
+    verification points are uploaded once, here.
     """
 
     def __init__(
@@ -564,6 +566,7 @@ class FusedMultiClassPipeline:
         seed_step_deg: float = 18.0,
         seed_flip: bool = False,
         verify_color_zscore: bool = False,
+        refine_bank: Optional[RefineBank] = None,
         device=None,
     ):
         self.device = resolve_device(device)
@@ -576,16 +579,7 @@ class FusedMultiClassPipeline:
         self.seed_flip = bool(seed_flip)
         self.K = torch.from_numpy(np.asarray(K, np.float32)).to(self.device)
         self.mc = MultiClassMatcher(detector, self.class_ids, self.device)
-        per_class = []
-        for cid in self.class_ids:
-            fields = refine_bank_fields(detector, cid, num_points)
-            if fields is None:
-                raise ValueError(
-                    f"class {cid!r} lacks icp_points/pose infos; train with "
-                    "render_train_templates or use the unfused serving path"
-                )
-            per_class.append(fields)
-        self.rb = multiclass_refine_bank_from_numpy(per_class, self.device)
+        self.rb = refine_bank or self._refine_bank(num_points)
         if verify_pts is None:
             raise ValueError("verify_pts (class_id -> (P, 3) array) required")
         self.verify_pts, self.verify_valid, self.verify_colors = multiclass_verify_points(
@@ -596,6 +590,18 @@ class FusedMultiClassPipeline:
         self.verify_tau = float(verify_tau)
         self.verify_color_weight = float(verify_color_weight)
         self.verify_color_zscore = bool(verify_color_zscore)
+
+    def _refine_bank(self, num_points: int) -> RefineBank:
+        per_class = []
+        for cid in self.class_ids:
+            fields = refine_bank_fields(self.det, cid, num_points)
+            if fields is None:
+                raise ValueError(
+                    f"class {cid!r} lacks icp_points/pose infos; train with "
+                    "render_train_templates or use the unfused serving path"
+                )
+            per_class.append(fields)
+        return multiclass_refine_bank_from_numpy(per_class, self.device)
 
     def __call__(self, rgb, depth, threshold: float):
         """Returns (C, R) device tensors (tid_local, x, y, score, R, t_mm,

@@ -109,7 +109,7 @@ def run_ranks(
     fn: Callable,
     world: int,
     args: Sequence = (),
-    device_type: str = "cpu",
+    device_type: str = "cuda",
     backend: Optional[str] = None,
     timeout: float = 300.0,
     threads: int = 1,
@@ -121,13 +121,18 @@ def run_ranks(
     ``fn`` and ``args`` must pickle (``fn`` a module-level function).  The
     ranks read them, and meet, through files in a fresh temporary directory
     (a process start blocks on what its pipe carries), use
-    ``threads`` torch threads each, and run on ``device_type`` (CUDA ranks
-    on ``cuda:<rank % device count>``) over ``backend``
+    ``threads`` torch threads each, and run on ``device_type``: CUDA by
+    default (ranks on ``cuda:<rank % device count>``), raising
+    ``RuntimeError`` before any rank starts when there is no CUDA device;
+    ``"cpu"`` for the CPU.  They talk over ``backend``
     (``backend_for(device_type, world)`` by default).  A rank that raises,
     dies or is still running after ``timeout`` seconds ends every rank and
     raises ``RuntimeError``, with the traceback of the first rank that
     raised (its peers then fail in their collectives).
     """
+    if device_type != "cpu" and not torch.cuda.is_available():
+        raise RuntimeError(f"run_ranks asks for {device_type!r} and no CUDA device is available; "
+                           "pass device_type='cpu' for the CPU")
     ctx = mp.get_context("spawn")
     backend = backend or backend_for(device_type, world)
     with tempfile.TemporaryDirectory() as tmp:

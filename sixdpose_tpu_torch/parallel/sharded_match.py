@@ -22,7 +22,7 @@ NMS boxes need no gathered template table.  The fields of a candidate
 
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -166,18 +166,18 @@ def sharded_detect(
     on the bank's device: tid in global template ids, score sorted
     descending (-1 on dead slots), keep the NMS survivors.
     """
-    d_idx, t_idx, _ = _coordinate(mesh)
-    dev = bank.kernels[0].device
-    n_data = mesh.size(0)
-    b = rgb_batch.shape[0]
-    if b % n_data:
-        raise ValueError(f"batch {b} does not divide over {n_data} data shards")
-    part = slice(d_idx * (b // n_data), (d_idx + 1) * (b // n_data))
-    rgb = _image(rgb_batch[part], torch.uint8, dev)
-    dep = _image(depth_batch[part], torch.int32, dev) if depth_batch is not None else None
-    if dep is None:
-        dep = torch.zeros(rgb.shape[:3], dtype=torch.int32, device=dev)
-    tid, x, y, score, _ = detect_frame_core(rgb if cfg.use_color else None, dep, bank, cfg, threshold, apply_nms=False)
+    rgb, dep = data_shard(mesh, rgb_batch, depth_batch, bank.kernels[0].device)
+    return detect_shard(mesh, rgb, dep, bank, cfg, threshold)
+
+
+def detect_shard(mesh, rgb: torch.Tensor, depth: Optional[torch.Tensor], bank: DeviceBank, cfg: DetectorConfig,
+                 threshold: float):
+    """``sharded_detect`` of this rank's frames (``data_shard``'s)."""
+    t_idx = _coordinate(mesh)[1]
+    if depth is None:
+        depth = torch.zeros(rgb.shape[:3], dtype=torch.int32, device=rgb.device)
+    tid, x, y, score, _ = detect_frame_core(rgb if cfg.use_color else None, depth, bank, cfg, threshold,
+                                            apply_nms=False)
     wh = bank.whs[0][tid.long()]
     n_local = bank.kernels[0].shape[0]
     fields = _pack([tid + t_idx * n_local, x, y, score, wh[..., 0], wh[..., 1]], dim=-2)
@@ -188,10 +188,34 @@ def sharded_detect(
     return mtid, mx, my, mscore, nms_boxes(boxes, mscore, cfg.nms_iou)
 
 
+def data_shard(mesh, rgb_batch, depth_batch, device) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """This rank's frames of a global batch that splits over ``data``: rgb
+    (B_l, H, W, 3) uint8 and depth (B_l, H, W) int32 (None without a depth
+    batch) on ``device``.  The ranks of one data coordinate take the same
+    frames, as JAX's ``P("data")`` replicates them over the other axes."""
+    d_idx = _coordinate(mesh)[0]
+    n_data = mesh.size(0)
+    b = rgb_batch.shape[0]
+    if b % n_data:
+        raise ValueError(f"batch {b} does not divide over {n_data} data shards")
+    part = slice(d_idx * (b // n_data), (d_idx + 1) * (b // n_data))
+    rgb = _image(rgb_batch[part], torch.uint8, device)
+    return rgb, _image(depth_batch[part], torch.int32, device) if depth_batch is not None else None
+
+
 def gather_data(mesh, *shards: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     """The full-batch outputs (B, ...) from each rank's data shard (B_l,
-    ...), on every rank."""
-    return tuple(all_gather(s, mesh, "data").flatten(0, 1) for s in shards)
+    ...), on every rank.  The shards travel as one float64 tensor, which
+    holds int32, float32 and bool exactly: one ``all_gather`` a call."""
+    b_l = shards[0].shape[0]
+    full = all_gather(torch.cat([s.reshape(b_l, -1).to(torch.float64) for s in shards], dim=1), mesh, "data")
+    full = full.flatten(0, 1)
+    out, at = [], 0
+    for s in shards:
+        n = s[0].numel()
+        out.append(full[:, at : at + n].reshape(-1, *s.shape[1:]).to(s.dtype))
+        at += n
+    return tuple(out)
 
 
 def sharded_multiscale_detect(

@@ -246,12 +246,22 @@ def multiclass_workload(classes: int = SYNTH_CLASSES, views: int = SYNTH_VIEWS, 
         ])
         out["verify_pts"][cid] = (cl[0] * 1000.0).astype(np.float32)
         out["verify_colors"][cid] = rng.integers(60, 220, (n_pts, 3)).astype(np.float32)
-    h, w = SYNTH_FRAME
-    out["rgb"] = rng.integers(0, 255, (h, w, 3), np.uint8)
-    out["depth"] = (450 + 30 * rng.standard_normal((h, w))).astype(np.uint16)
+    out["rgb"], out["depth"] = _multiclass_frame(rng)
     out.update(K=SYNTH_K.copy(), cfg=SYNTH_CFG, threshold=55.0, icp=IcpConfig(max_iters=20), max_refine=96,
                icp_seeds=4, seed_flip=True, num_points=n_pts, verify_tau=6.0, verify_color_weight=0.5)
     return out
+
+
+def _multiclass_frame(rng):
+    h, w = SYNTH_FRAME
+    rgb = rng.integers(0, 255, (h, w, 3), np.uint8)
+    return rgb, (450 + 30 * rng.standard_normal((h, w))).astype(np.uint16)
+
+
+def multiclass_frame(seed: int):
+    """(rgb, depth) drawn as ``multiclass_workload`` draws its frame, from
+    ``default_rng(seed)`` alone: more frames for the workload's bank."""
+    return _multiclass_frame(np.random.default_rng(seed))
 
 
 def multiclass_detector(workload: dict, device) -> Detector:
@@ -320,13 +330,23 @@ def multiscale_workload(classes: int = MS_CLASSES, views: int = MS_VIEWS, seed: 
              for l, (f, wl, hl) in enumerate(levels)]
             for i in range(views)
         ])
-    out["rgb"] = rng.integers(0, 255, VGA + (3,), np.uint8)
+    out["rgb"], out["depth"] = _multiscale_frame(rng)
+    out.update(cfg=MS_CFG, train_depth=MS_TRAIN_DEPTH, num_scales=5, threshold=70.0)
+    return out
+
+
+def _multiscale_frame(rng):
+    rgb = rng.integers(0, 255, VGA + (3,), np.uint8)
     depth = np.zeros(VGA, np.float64)
     for row, mm in MS_PLANES:
         depth[row:] = mm
-    out["depth"] = np.round(depth + 15.0 * rng.standard_normal(VGA)).astype(np.uint16)
-    out.update(cfg=MS_CFG, train_depth=MS_TRAIN_DEPTH, num_scales=5, threshold=70.0)
-    return out
+    return rgb, np.round(depth + 15.0 * rng.standard_normal(VGA)).astype(np.uint16)
+
+
+def multiscale_frame(seed: int):
+    """(rgb, depth) drawn as ``multiscale_workload`` draws its frame, from
+    ``default_rng(seed)`` alone: more frames for the workload's bank."""
+    return _multiscale_frame(np.random.default_rng(seed))
 
 
 def multiscale_detector(workload: dict, device) -> Detector:

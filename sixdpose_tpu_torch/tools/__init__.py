@@ -15,6 +15,8 @@ reads and writes the dataset's files, so a machine without ``yaml`` and
 - ``eval_calc_errors``: ``image_errors`` scores the estimates of one image;
 - ``eval_loc``: ``localization_scores`` matches errors to ground truth and
   gives the recall;
+- ``vis_poses``: ``overlay`` blends each pose's rendered silhouette over
+  a test image;
 - ``bench_multiscale_multiclass``: the multi-scale sweep on
   ``synthetic.multiscale_workload``;
 - ``bench_scaling``: data-parallel scaling over ``parallel``.

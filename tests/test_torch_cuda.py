@@ -779,3 +779,39 @@ def test_ranks_sharing_the_card_equal_cpu_ranks(cuda):
             assert card[r][i]["launches"] > 0
             for a, b in zip(card[r][i]["outputs"], cpu[r][i]["outputs"]):
                 np.testing.assert_array_equal(a, b)
+
+
+def test_fused_frames_over_data_equal_the_single_process_card(cuda):
+    """``fused_mc`` and ``fused_ms`` at data 2 on two ranks sharing the card:
+    each rank's frames equal ``FusedMultiClassPipeline`` and
+    ``MultiScaleMultiClass`` on the card, to the bit, and every rank
+    launches the kernel."""
+    from sixdpose_tpu_torch.models.multiscale import MultiScaleMultiClass
+    from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline
+    from sixdpose_tpu_torch.parallel.distributed import run_ranks
+    from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
+
+    w_mc = synthetic.multiclass_workload(classes=3, views=40)
+    w_ms = synthetic.multiscale_workload(classes=3, views=40)
+    frames = {k: [f(s) for s in (1, 2)] for k, f in (("mc", synthetic.multiclass_frame),
+                                                     ("ms", synthetic.multiscale_frame))}
+    jobs = [dict(kind="fused_mc", mesh=(2, 1, 1), class_ids=w_mc["class_ids"], templates=w_mc["templates"],
+                 infos=w_mc["infos"], K=w_mc["K"], pipeline=synthetic.multiclass_pipeline_args(w_mc),
+                 rgb=np.stack([f[0] for f in frames["mc"]]), depth=np.stack([f[1] for f in frames["mc"]]),
+                 cfg=w_mc["cfg"], threshold=30.0),
+            dict(kind="fused_ms", mesh=(2, 1, 1), class_ids=w_ms["class_ids"], templates=w_ms["templates"],
+                 train_depth=w_ms["train_depth"], num_scales=w_ms["num_scales"],
+                 rgb=np.stack([f[0] for f in frames["ms"]]), depth=np.stack([f[1] for f in frames["ms"]]),
+                 cfg=w_ms["cfg"], threshold=30.0)]
+    res = run_ranks(run_jobs, 2, ("cuda", jobs), device_type="cuda", timeout=300)
+    pipe = FusedMultiClassPipeline(synthetic.multiclass_detector(w_mc, cuda), w_mc["K"], device=cuda,
+                                   **synthetic.multiclass_pipeline_args(w_mc))
+    ms = MultiScaleMultiClass(synthetic.multiscale_detector(w_ms, cuda), w_ms["train_depth"],
+                              num_scales=w_ms["num_scales"], device=cuda)
+    for i, (job, run) in enumerate(zip(jobs, (pipe, ms.match_arrays))):
+        for f, (rgb, dep) in enumerate(zip(job["rgb"], job["depth"])):
+            want = run(rgb, dep, 30.0)
+            for r in range(2):
+                assert res[r][i]["launches"] > 0
+                for a, b in zip(res[r][i]["outputs"], want):
+                    np.testing.assert_array_equal(a[f], b.cpu().numpy())

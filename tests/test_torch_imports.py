@@ -65,9 +65,9 @@ def test_port_imports_without_jax():
                  "lchf.pose", "lchf.eval", "lchf.pipeline", "data", "data.inout", "data.datasets", "utils.artifacts",
                  "seg", "seg.dasp", "seg.registration", "seg.slic", "ops.segment_sum", "ops.floyd_steinberg",
                  "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharded_match", "parallel.tiled_match",
-                 "parallel.rank_jobs", "tools", "tools.train_templates", "tools.detect_sixd", "tools.calc_gt_stats",
-                 "tools.eval_calc_errors", "tools.eval_loc", "tools.bench_multiscale_multiclass",
-                 "tools.bench_scaling"):
+                 "parallel.rank_jobs", "parallel.fused", "tools", "tools.train_templates", "tools.detect_sixd",
+                 "tools.calc_gt_stats", "tools.eval_calc_errors", "tools.eval_loc", "tools.bench_multiscale_multiclass",
+                 "tools.bench_scaling", "tools.vis_poses"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 

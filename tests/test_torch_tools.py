@@ -9,8 +9,9 @@ tools' flags (and ``--device cpu``); the recall must be 1.0, as the JAX
 chain gives.  Then the files are checked both ways: the port's bank loads
 in JAX's ``Detector.read_classes`` and back, JAX's ``eval.loc`` gives the
 port's errors (ADI to 1e-5 relative, float32 sums in another order, as
-tests/test_torch_eval.py holds them) and scores from the same files, and
-JAX's ``calc_gt_stats`` computation gives the port's ``visib_fract``.
+tests/test_torch_eval.py holds them) and scores from the same files,
+JAX's ``calc_gt_stats`` computation gives the port's ``visib_fract``, and
+JAX's ``vis_poses`` writes the port's overlay PNGs byte for byte.
 """
 
 import contextlib
@@ -37,14 +38,14 @@ from sixdpose_tpu_torch.eval.misc import model_diameter
 from sixdpose_tpu_torch.geometry.render import render
 from sixdpose_tpu_torch.geometry.view_sampler import sample_views
 from sixdpose_tpu_torch.models.detector import Detector
-from sixdpose_tpu_torch.tools import calc_gt_stats, detect_sixd, eval_calc_errors, eval_loc, train_templates
+from sixdpose_tpu_torch.tools import calc_gt_stats, detect_sixd, eval_calc_errors, eval_loc, train_templates, vis_poses
 from sixdpose_tpu_torch.tools.eval_loc import localization_scores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = np.array([[240.0, 0, 120.0], [0, 240.0, 90.0], [0, 0, 1.0]])
 IMW, IMH = 240, 180
 TWINS = ("train_templates", "detect_sixd", "calc_gt_stats", "eval_calc_errors", "eval_loc",
-         "bench_multiscale_multiclass", "bench_scaling")
+         "bench_multiscale_multiclass", "bench_scaling", "vis_poses")
 
 
 def _box_model():
@@ -199,3 +200,22 @@ def test_twin_takes_the_jax_tools_flags(name):
     absent = {"bench_multiscale_multiclass": {"--budget-gb", "--fused-budget-gb"},
               "bench_scaling": {"--platform", "--chained"}}.get(name, set())
     assert jax_flags - absent <= port_flags, sorted(jax_flags - absent - port_flags)
+
+
+@pytest.mark.parametrize("mode", ["gt", "results"])
+def test_vis_poses_pngs_equal_jax(chain, tmp_path, monkeypatch, mode):
+    """The ground-truth or estimated poses' overlays: the port's PNGs equal
+    the JAX tool's, byte for byte (its ``main`` under a patched argv)."""
+    args = chain["base"] + ["--scene", "1"] + (["--results", chain["results"]] if mode == "results" else [])
+    jax_main = runpy.run_path(os.path.join(REPO, "tools", "vis_poses.py"))["main"]
+    monkeypatch.setattr(sys, "argv", ["vis_poses.py"] + args + ["--out", str(tmp_path / "jax")])
+    with contextlib.redirect_stdout(io.StringIO()):
+        assert jax_main() == 0
+    _run(vis_poses.main, args + ["--out", str(tmp_path / "port"), "--device", "cpu"])
+    names = sorted(os.listdir(tmp_path / "jax"))
+    assert names == ["01_0000.png", "01_0001.png"] == sorted(os.listdir(tmp_path / "port"))
+    for name in names:
+        assert (tmp_path / "port" / name).read_bytes() == (tmp_path / "jax" / name).read_bytes(), name
+        vis = inout.load_im(str(tmp_path / "port" / name))
+        rgb = inout.load_im(os.path.join(chain["root"], "test", "01", "rgb", name[3:]))
+        assert (vis != rgb).any(axis=-1).sum() > 500  # the box's silhouette is drawn
