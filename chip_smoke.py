@@ -49,7 +49,8 @@ Drives the port's main paths, and checks every result:
   ``sharded_detect_refine``, ``fused_multiclass_over_data`` and
   ``multiscale_multiclass_over_data``) on ranks that share the one card;
 - the SIXD tool twins (``sixdpose_tpu_torch/tools``) at the mini-SIXD size
-  of the JAX package's tool test (240 x 180, one object, two test views).
+  of the JAX package's tool test (240 x 180, one object, two test views),
+  and the measurement twins at the JAX tools' defaults.
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -105,14 +106,18 @@ non-zero:
    (bitwise), a batch under ``set_sync_debug_mode("error")``, ms per batch;
 13. train_synth: the full-width bank trained on the card (templates per
    class, training seconds), and the textured box at 60 views trained on
-   the card and on the CPU: equal templates and infos;
+   the card and on the CPU: equal templates and infos; the full-width bank
+   saved by ``TemplateBank.save_checkpoint`` and restored by
+   ``load_checkpoint`` (its padded arrays equal the trained bank's to the
+   bit, its infos exactly; save and restore seconds, bytes on disk), and
+   the restored bank is the one ``synth`` serves;
 14. synth_golden: ``run_benchmark`` and the service on the card at the
    golden's cut size over its JAX-trained bank: JAX's targets, hits, VSD
    hits and per-object recall, and the service's estimates (fused, host and
    multi-scale paths) within ``FUSED_TOL`` of JAX's, launch counts set to 0
    just before and read just after;
 15. synth: ``run_benchmark`` at the ``SYNTH_r05.json`` settings over the
-   full-width bank, launch counts set to 0 just before and read just after;
+   full-width bank restored from its checkpoint, launch counts set to 0 just before and read just after;
    one line ``{"synth": {...}}`` with the recall, the VSD recall, targets,
    hits, per-object recall, training seconds and per-frame times beside the
    record, gated at 77 +- 2 targets and each recall no lower than the
@@ -154,7 +159,11 @@ non-zero:
    ``Detector.match_batch_arrays``; data 2 x template 2, tile 2,
    template-2 multi-scale and data 2 x template 2 detection with ICP of
    every candidate (``detect_icp``) on four ranks sharing the card over
-   gloo, each equal to four CPU ranks; in a second spawn, the fused
+   gloo, each equal to four CPU ranks, and data 2 x template 2 again with
+   each rank's template shard restored from the bank's checkpoint
+   (``restore_local_levels``): every rank's shard equal to the ``levels``
+   route's and its outputs equal to that job's, to the bit, one refine
+   launch a level, its restore seconds and bytes read; in a second spawn, the fused
    multi-class frame (``fused_mc``, the multi-class workload) and the
    multi-scale multi-class frame (``fused_ms``, the multi-scale workload)
    at data 4 on four frames, each rank's frames equal to the
@@ -162,9 +171,12 @@ non-zero:
    rank 0's ms per step and per merge collective (CUDA events) and its
    device ms per step (torch.profiler); each rank's peak device memory;
 19. tools: the tool twins' compute (train, detect, ADI errors, recall) on
-   the card against the same chain on the CPU, and ``vis_poses``'
+   the card against the same chain on the CPU, ``vis_poses``'
    overlays of the ground truth and of the estimates, the card's equal to
-   the CPU's byte for byte;
+   the CPU's byte for byte, and the measurement twins at their defaults:
+   ``bench_stage_breakdown`` (ms per prefix and per stage of the bench
+   frame) and ``bench_local_refine`` (``equivalent: true``, then the
+   kernel's, the plain version's and the grouped conv's ms and the bound);
 20. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
@@ -269,6 +281,7 @@ from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
+from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
 from sixdpose_tpu_torch.ops import local_refine as LR
@@ -303,11 +316,13 @@ from sixdpose_tpu_torch.seg.dasp import floyd_steinberg_seeds as seg_seeds
 from sixdpose_tpu_torch.seg.dasp import pixel_stage as seg_pixel_stage
 from sixdpose_tpu_torch.parallel.distributed import backend_for, run_ranks
 from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
-from sixdpose_tpu_torch.parallel.sharded_match import multiscale_class_arrays
+from sixdpose_tpu_torch.parallel.sharded_match import multiscale_class_arrays, shard_bank
 from sixdpose_tpu_torch.serving import PoseEstimationService
 from sixdpose_tpu_torch.tools import detect_sixd as tools_detect
 from sixdpose_tpu_torch.tools import eval_calc_errors as tools_errors
+from sixdpose_tpu_torch.tools import bench_local_refine as tools_refine
 from sixdpose_tpu_torch.tools import bench_scaling as tools_scaling
+from sixdpose_tpu_torch.tools import bench_stage_breakdown as tools_stages
 from sixdpose_tpu_torch.tools import eval_loc as tools_loc
 from sixdpose_tpu_torch.tools import train_templates as tools_train
 from sixdpose_tpu_torch.tools import vis_poses as tools_vis
@@ -1580,7 +1595,9 @@ def phase_train_synth(dev, bank_path: str):
     ``min_n_views`` 80, 320 x 240, top_k 128) trained on the card by
     ``train_benchmark_bank`` into ``bank_path``; and the textured box at
     ``CUT_VIEWS`` views trained on the card and on the CPU: the same
-    templates and infos."""
+    templates and infos; then the full-width bank's checkpoint round trip
+    (``bank_checkpoint_roundtrip``).  Returns the training seconds, the
+    seconds per class and the restored bank."""
     t0 = time.perf_counter()
     models = TB.make_models()
     K = TB.benchmark_K(SYNTH_IM)
@@ -1620,10 +1637,43 @@ def phase_train_synth(dev, bank_path: str):
         for ia, ib in zip(d_card.bank.infos["texbox"], d_cpu.bank.infos["texbox"])
     )
     check(same and s_card["added"] > 0, f"the textured box trained on the card differs from the CPU: {s_card} {s_cpu}")
+    restored, ckpt = bank_checkpoint_roundtrip(det.bank, os.path.join(os.path.dirname(bank_path), "synth_checkpoint"))
     emit("train_synth", t0, templates_per_class=per_class, templates=det.num_templates(), train_time_s=train_s,
          train_seconds_per_class=seconds, cut_texbox={"views": sum(s_card.values()), "stats": s_card,
-                                                      "card_equals_cpu": True})
-    return train_s, seconds
+                                                      "card_equals_cpu": True}, checkpoint=ckpt)
+    return train_s, seconds, restored
+
+
+def same_info(a: dict, b: dict) -> bool:
+    """A trained template's info against the one restored from JSON (arrays
+    as lists): the same keys, shapes and values, exactly."""
+    return a.keys() == b.keys() and all(
+        np.shape(a[k]) == np.shape(b[k]) and np.array_equal(np.asarray(a[k]), np.asarray(b[k])) for k in a)
+
+
+def bank_checkpoint_roundtrip(bank, ckpt_dir: str) -> tuple:
+    """``save_checkpoint`` of the trained bank and ``load_checkpoint`` of it:
+    the same classes, padded arrays to the bit and infos exactly.  Returns
+    the restored bank, and the save and restore seconds and the bytes on
+    disk."""
+    t0 = time.perf_counter()
+    bank.save_checkpoint(ckpt_dir)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    back = TemplateBank.load_checkpoint(ckpt_dir, bank.cfg)
+    restore_s = time.perf_counter() - t0
+    want, got = bank.to_padded_arrays(), back.to_padded_arrays()
+    check(back.class_ids() == bank.class_ids() and all(
+        got[cid][k].dtype == want[cid][k].dtype and np.array_equal(got[cid][k], want[cid][k])
+        for cid in want for k in want[cid]), "the restored bank's padded arrays differ from the trained bank's")
+    check(all(len(back.infos[cid]) == len(bank.infos[cid]) and all(map(same_info, bank.infos[cid], back.infos[cid]))
+              for cid in bank.class_ids()), "the restored bank's infos differ from the trained bank's")
+    sizes = {name: sum(os.path.getsize(os.path.join(root, f)) for root, _, files in os.walk(path) for f in files)
+             for name, path in (("arrays", os.path.join(ckpt_dir, "arrays")), ("meta_json", ckpt_dir))}
+    sizes["meta_json"] -= sizes["arrays"]
+    shutil.rmtree(ckpt_dir)
+    return back, {"save_s": save_s, "restore_s": restore_s, "bytes_on_disk": sizes, "classes": len(back.class_ids()),
+                  "templates": back.num_templates(), "equals_trained": True, "synth_serves_it": True}
 
 
 @contextmanager
@@ -1717,15 +1767,34 @@ def phase_synth_golden(dev):
     return launches
 
 
-def phase_synth(dev, bank_path: str, train_s: float):
+@contextmanager
+def serving_bank(bank):
+    """``run_benchmark`` serves ``bank`` in place of the one
+    ``train_benchmark_bank`` would read from its cache or train."""
+    original = TB.train_benchmark_bank
+
+    def restored(models, K, im_size, min_n_views, cfg, bank_cache=None, verbose=True, device=None):
+        det = Detector(cfg, device=device)
+        det.bank = bank
+        return det, 0.0
+
+    TB.train_benchmark_bank = restored
+    try:
+        yield
+    finally:
+        TB.train_benchmark_bank = original
+
+
+def phase_synth(dev, bank, train_s: float):
     """``run_benchmark`` at the settings of ``SYNTH_r05.json`` on the card,
-    over the bank of ``train_synth``: its recall beside the record's, gated
-    at the record minus ``SYNTH_RECALL_FLOOR`` and 77 +- 2 targets."""
+    serving the bank of ``train_synth`` restored from its checkpoint: its
+    recall beside the record's, gated at the record minus
+    ``SYNTH_RECALL_FLOOR`` and 77 +- 2 targets."""
     t0 = time.perf_counter()
     services: list = []
     LR.similarity_local_sparse_cuda.launches = 0
-    with recording_services(services):
-        r = TB.run_benchmark(bank_cache=bank_path, verbose=False, device=dev, **SYNTH_SETTINGS)
+    with recording_services(services), serving_bank(bank):
+        r = TB.run_benchmark(verbose=False, device=dev, **SYNTH_SETTINGS)
     torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == SYNTH_SETTINGS["num_scenes"] + 11,
@@ -2536,10 +2605,12 @@ def fused_reference(job, pipe, ms_card) -> list:
     return [[a.cpu().numpy() for a in run(rgb, dep, job["threshold"])] for rgb, dep in zip(job["rgb"], job["depth"])]
 
 
-def parallel_jobs(cid, det, frames, depths, w_ms, reps: int) -> list:
+def parallel_jobs(cid, det, frames, depths, w_ms, reps: int, checkpoint: str) -> list:
     """The jobs of the four ranks: data 2 x template 2 on the bench batch,
-    tile 2 on its first frame, and template 2 multi-scale on the first class
-    of the multi-scale workload (337 templates), all at LOW_THRESHOLD."""
+    tile 2 on its first frame, template 2 multi-scale on the first class of
+    the multi-scale workload (337 templates), and data 2 x template 2 on the
+    bench batch again with each rank's shard restored from the bank's
+    ``checkpoint`` (the mesh shape of the first job), all at LOW_THRESHOLD."""
     levels = det.bank.finalized(cid)
     arrays = multiscale_class_arrays(w_ms["templates"][0], w_ms["train_depth"], w_ms["cfg"].t_at_level[-1])
     common = dict(threshold=LOW_THRESHOLD, reps=reps)
@@ -2548,7 +2619,41 @@ def parallel_jobs(cid, det, frames, depths, w_ms, reps: int) -> list:
         dict(kind="tiled", mesh=(1, 1, 2), levels=levels, rgb=frames[0], depth=depths[0], cfg=BENCH_CFG, **common),
         dict(kind="multiscale", mesh=(1, 2, 1), arrays=arrays, rgb=w_ms["rgb"], depth=w_ms["depth"], cfg=w_ms["cfg"],
              train_depth=w_ms["train_depth"], num_scales=w_ms["num_scales"], **common),
+        dict(kind="sharded", mesh=(2, 2, 1), checkpoint=checkpoint, class_id=cid, rgb=frames, depth=depths,
+             cfg=BENCH_CFG, **common),
     ]
+
+
+def checkpoint_checks(job, card: list, cpu: list, i: int, levels) -> dict:
+    """The checkpoint job ``i`` against the ``levels`` job 0 of the same
+    mesh: every card and CPU rank's restored shard equal to ``shard_bank``
+    of the levels to the bit, its outputs equal to job 0's, one refine
+    launch a level in its first step.  Returns each card rank's restore
+    seconds (its first import of ``torch.distributed.checkpoint`` apart) and
+    bytes read beside its set-up seconds in job 0."""
+    what = f"the checkpoint job (mesh {job['mesh']})"
+    shards = job["mesh"][1]
+    out = {"restore_s_by_rank": [], "restore_import_s_by_rank": [], "restore_bytes_by_rank": [],
+           "levels_route_setup_s_by_rank": []}
+    for r in range(4):
+        for side, runs in (("card", card), ("CPU", cpu)):
+            res = runs[r][i]
+            want = shard_bank(levels, shards, res["coordinate"][1], "cpu")
+            got = res["restore"]["levels"]
+            check(all(np.array_equal(a, b.numpy()) and a.dtype == b.numpy().dtype
+                      for lv, wk, wn, ww, wf, wv in zip(got, want.kernels, want.nfeats, want.whs, want.feats, want.valids)
+                      for a, b in zip((lv.kernels, lv.nfeat, lv.wh, lv.feats, lv.valid), (wk, wn, ww, wf, wv))),
+                  f"{what}: rank {r}'s restored shard on the {side} differs from the levels route's")
+        check(all(np.array_equal(a, b) for a, b in zip(card[r][i]["outputs"], card[r][0]["outputs"])),
+              f"{what}: rank {r}'s outputs differ from the levels route's")
+        check(card[r][i]["launches"] == len(BENCH_CFG.t_at_level) - 1,
+              f"{what}: rank {r} launched the refine kernel {card[r][i]['launches']} times in one step")
+        out["restore_s_by_rank"].append(card[r][i]["restore"]["seconds"])
+        out["restore_import_s_by_rank"].append(card[r][i]["restore"]["import_s"])
+        out["restore_bytes_by_rank"].append(card[r][i]["restore"]["bytes_read"])
+        out["levels_route_setup_s_by_rank"].append(card[r][0]["setup_s"])
+    out["equals"] = "the levels route's shards and outputs on every rank (bitwise)"
+    return out
 
 
 def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> dict:
@@ -2593,7 +2698,11 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
                "ms": nccl["ms"], "merge_ms": nccl["merge_ms"], "rank0_profile": nccl["profile"],
                "peak_mib_by_rank": [nccl["peak_bytes"] / 2**20]}]
 
-    matching = parallel_jobs(cid, det, frames, depths, w_ms, PARALLEL_REPS)
+    ckpt = tempfile.TemporaryDirectory(prefix="bench_bank_checkpoint_")  # removed when the phase returns
+    s0 = time.perf_counter()
+    det.bank.save_checkpoint(ckpt.name)
+    ckpt_save_s = time.perf_counter() - s0
+    matching = parallel_jobs(cid, det, frames, depths, w_ms, PARALLEL_REPS, ckpt.name)
     fused = fused_parallel_jobs(cid, det, frames, depths, w_mc, w_ms, PARALLEL_REPS)
     jobs = matching + fused
     backend = backend_for("cuda", 4)  # gloo on one card; NCCL where each rank has a card of its own
@@ -2601,7 +2710,8 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
     # Two spawns of three meshes each: over NCCL on four cards, ranks holding
     # six meshes' communicators hung in their teardown.
     card = [a + b for a, b in zip(*(
-        run_ranks(run_jobs, 4, ("cuda", [dict(j, profile=PARALLEL_PROFILE) for j in part]), device_type="cuda",
+        run_ranks(run_jobs, 4, ("cuda", [j if "checkpoint" in j else dict(j, profile=PARALLEL_PROFILE) for j in part]),
+                  device_type="cuda",
                   timeout=PARALLEL_TIMEOUT) for part in (matching, fused)))]
     card_s = time.perf_counter() - s0
     on_cpu = [i for i, j in enumerate(jobs) if j["kind"] not in FUSED_KINDS]
@@ -2647,18 +2757,21 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
             extra = {"live_candidates": int((out[3] >= 0).sum())}
             if job["kind"] == "detect_icp":
                 extra.update(icp_candidates_per_frame=int(out[5].shape[1]), fitness_mean=float(out[6].mean()))
-        prof = card[0][i]["profile"]
+            if "checkpoint" in job:
+                extra.update(checkpoint_checks(job, card, cpu, i, levels), checkpoint_save_s=ckpt_save_s)
+        prof = card[0][i].get("profile")  # the checkpoint job is not profiled: job 0 of its mesh is
         meshes.append({
             "mesh": list(job["mesh"]), "kind": job["kind"], "backend": backend, "ranks": len(ranks),
             "frames": len(job["rgb"]) if job["kind"] not in ("tiled", "multiscale") else 1,
             "shared_card": backend == "gloo", "equals": equals,
             "launches_by_rank": [card[r][i]["launches"] for r in ranks], "ms": card[0][i]["ms"],
             "merge_ms": card[0][i]["merge_ms"], "rank0_profile": prof,
-            "rank0_idle_share": 1.0 - prof["device_ms"] / prof["wall_ms"],
+            "rank0_idle_share": 1.0 - prof["device_ms"] / prof["wall_ms"] if prof else None,
             "peak_mib_by_rank": [card[r][i]["peak_bytes"] / 2**20 for r in ranks],
             "rank0_setup_s": card[0][i]["setup_s"], "rank0_first_step_s": card[0][i]["first_step_s"],
             "rank0_job_s": card[0][i]["job_s"], **extra,
         })
+    ckpt.cleanup()
     launches = sum(sum(m["launches_by_rank"]) for m in meshes)
     emit("parallel", t0, meshes=meshes, launches=launches, reps=PARALLEL_REPS, threshold=LOW_THRESHOLD,
          card_spawn_seconds=card_s, cpu_spawn_seconds=cpu_s,
@@ -2784,10 +2897,31 @@ def phase_tools(dev) -> dict:
     check(card["recall"] == cpu["recall"], f"recall {card['recall']} on the card, {cpu['recall']} on the CPU")
     check(card["launches"] > 0, "the twins' detection did not launch the refine kernel")
     vis = vis_overlays(dev, scene, cpu["ests"])
+    twins = measurement_twins()
     emit("tools", t0, train=card["stats"], templates=len(card["templates"]), recall=card["recall"],
          adi_mm=[e["errors"][0] for e in card["errors"]], estimates_diff=est_diff, adi_diff_mm=err_diff,
-         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s, vis_poses=vis)
+         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s, vis_poses=vis, measurement_twins=twins)
     return {"launches": card["launches"], "recall": card["recall"]}
+
+
+def measurement_twins() -> dict:
+    """``bench_stage_breakdown`` and ``bench_local_refine`` through their
+    ``main`` on the card at their defaults (their lines print here); the
+    refine twin's kernel must equal its plain version exactly.  Returns
+    their reports."""
+    reports = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, tool in (("bench_stage_breakdown", tools_stages), ("bench_local_refine", tools_refine)):
+            path = os.path.join(tmp, f"{name}.json")
+            check(tool.main(["--out", path]) == 0, f"{name} failed")
+            with open(path) as fh:
+                reports[name] = json.load(fh)
+    refine = reports["bench_local_refine"]
+    check(refine["equivalent"] and refine["grouped_conv_equal"],
+          "bench_local_refine: the kernel or the grouped conv differs from the plain version")
+    check(all(np.isfinite(v) and v > 0 for v in reports["bench_stage_breakdown"]["prefix_ms"].values()),
+          "bench_stage_breakdown: a prefix has no time")
+    return reports
 
 
 def parallel_only(dev, smi: str) -> int:
@@ -2860,9 +2994,9 @@ def main() -> int:
     render_ms = phase_render(dev)
     with tempfile.TemporaryDirectory() as tmp:
         bank_path = os.path.join(tmp, "synth_bank.npz")
-        train_s, train_per_class = phase_train_synth(dev, bank_path)
+        train_s, train_per_class, restored = phase_train_synth(dev, bank_path)
         golden_launches = phase_synth_golden(dev)
-        synth_launches, svc, synth_result = phase_synth(dev, bank_path, train_s)
+        synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
     lchf_launches, _ = phase_lchf(dev)
     check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
     seg_launches, seg_kernels = phase_seg(dev)

@@ -21,6 +21,8 @@ both packages.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -329,6 +331,7 @@ class TemplateBank:
         self.templates: Dict[str, List[List[TemplateLevel]]] = {}
         self.infos: Dict[str, List[dict]] = {}
         self._finalized: Dict[str, List[BankLevel]] = {}
+        self.shards: Dict[str, Dict[str, torch.Tensor]] = {}  # DTensors of load_checkpoint(mesh=...)
 
     # -- train-time ---------------------------------------------------------
 
@@ -436,6 +439,66 @@ class TemplateBank:
                     whp[i, l] = (lev.width, lev.height, lev.pyramid_level)
             out[cid] = {"feats": feats, "valid": valid, "whp": whp}
         return out
+
+    def save_checkpoint(self, path: str) -> None:
+        """Checkpoint the bank as a directory that restores onto a template
+        mesh: the JAX package's ``save_orbax``, on
+        ``torch.distributed.checkpoint`` (``models/checkpoint.py``).  Infos
+        go to ``meta.json`` as JSON, arrays as lists."""
+        from sixdpose_tpu_torch.models import checkpoint as CK  # torch.distributed.checkpoint: 1-2 s to import
+
+        path = os.path.abspath(path)
+        CK.save_arrays(os.path.join(path, "arrays"), self.to_padded_arrays())
+        meta = {
+            "classes": self.class_ids(),
+            "infos": {cid: self.infos[cid] for cid in self.class_ids()},
+            "config": repr(self.cfg),
+        }
+        with open(os.path.join(path, "meta.json"), "w") as fh:
+            # dumps, not dump: the same text, by the C encoder (dump streams through the Python one).
+            fh.write(json.dumps(meta, default=lambda o: o.tolist() if hasattr(o, "tolist") else str(o)))
+
+    @classmethod
+    def load_checkpoint(cls, path: str, cfg: DetectorConfig, mesh=None) -> "TemplateBank":
+        """Restore a bank written by ``save_checkpoint``: the JAX package's
+        ``load_orbax``.
+
+        ``mesh``: optional (data, template, tile) ``DeviceMesh``
+        (``parallel.mesh.make_mesh``).  With it, every class's arrays
+        restore as DTensors sharded over ``template`` (dimension 0) and
+        replicated over the other axes, each rank reading its own rows; they
+        stay on the bank as ``shards`` (class -> name -> DTensor), and the
+        templates are gathered from them over ``template``, so every rank of
+        the mesh must call.  Infos come back as JSON gives them (arrays as
+        lists), as from ``load_orbax``.
+        """
+        from sixdpose_tpu_torch.models import checkpoint as CK
+
+        path = os.path.abspath(path)
+        with open(os.path.join(path, "meta.json")) as fh:
+            meta = json.load(fh)
+        arrays = os.path.join(path, "arrays")
+        shapes = CK.stored_shapes(arrays)
+        keys = {CK.key(cid, name): shapes[CK.key(cid, name)] for cid in meta["classes"] for name in CK.ARRAYS}
+        sharded = mesh is not None
+        tensors = CK.read_sharded(arrays, keys, mesh) if sharded else CK.read_arrays(arrays, keys)[0]
+        bank = cls(cfg)
+        for cid in meta["classes"]:
+            feats, valid, whp = (
+                (CK.gather_rows(t, mesh) if sharded else t).cpu().numpy()
+                for t in (tensors[CK.key(cid, name)] for name in CK.ARRAYS)
+            )
+            infos = meta["infos"].get(cid, [])
+            for i in range(feats.shape[0]):
+                levels = [
+                    TemplateLevel(features=feats[i, l, : valid[i, l].sum()].copy(), width=int(whp[i, l, 0]),
+                                  height=int(whp[i, l, 1]), pyramid_level=int(whp[i, l, 2]))
+                    for l in range(feats.shape[1])
+                ]
+                bank.add_template_levels(cid, levels, infos[i] if i < len(infos) else {})
+        if sharded:
+            bank.shards = {cid: {name: tensors[CK.key(cid, name)] for name in CK.ARRAYS} for cid in meta["classes"]}
+        return bank
 
     @classmethod
     def load(cls, path: str, cfg: DetectorConfig) -> "TemplateBank":

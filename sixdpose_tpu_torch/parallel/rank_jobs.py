@@ -20,11 +20,19 @@ Job keys: ``kind``, ``mesh``, ``cfg``, ``threshold``, ``rgb``, ``depth``
 and optionally ``reps`` (timed steps after one warm-up), ``profile``
 (profiled steps after them), and
 
-- ``"sharded"``: ``levels``, the class's per-level numpy bank;
-- ``"tiled"``: ``levels``;
+- ``"sharded"``: ``levels``, the class's per-level numpy bank, or
+  ``checkpoint`` (the directory of ``TemplateBank.save_checkpoint``) and
+  ``class_id``: each rank restores its own template shard
+  (``sharded_match.restore_local_levels``), and its result carries
+  ``restore``: the seconds, the bytes it read, the restored numpy
+  ``BankLevel``s and the seconds of the process's first import of
+  ``torch.distributed.checkpoint`` (``import_s``, zero after the first);
+- ``"tiled"``: ``levels``, or ``checkpoint`` and ``class_id`` (the whole
+  class: the mesh's template size must be 1);
 - ``"multiscale"``: ``arrays`` (``convert.multiscale_arrays`` of one
   class), ``train_depth``, ``num_scales`` and optionally ``bins``;
-- ``"detect_icp"`` (``fused.sharded_detect_refine``): ``levels``,
+- ``"detect_icp"`` (``fused.sharded_detect_refine``): ``levels`` (or
+  ``checkpoint`` and ``class_id``),
   ``model_pts`` (N, 3) m, optionally ``model_valid`` (N,), ``K`` (3, 3),
   ``init_T`` (top_k, 4, 4) and ``icp`` (an ``IcpConfig``);
 - ``"fused_mc"`` (``fused.fused_multiclass_over_data``): ``class_ids``,
@@ -70,6 +78,7 @@ from sixdpose_tpu_torch.parallel.sharded_match import (
     gather_data,
     local_bank,
     local_multiscale_bank,
+    restore_local_levels,
     sharded_detect,
     sharded_multiscale_detect,
 )
@@ -85,8 +94,30 @@ def _frames(job, dev):
     return rgb, torch.from_numpy(dep.astype(np.int32)).to(dev) if dep is not None else None
 
 
+def _class_bank(mesh, job, dev):
+    """The job's class bank on this rank: restored from its ``checkpoint``
+    by ``run_jobs``, or this rank's template shard of its ``levels``."""
+    return job["bank"] if "bank" in job else local_bank(mesh, job["levels"], dev)
+
+
+def _restore(mesh, job, dev) -> dict:
+    """This rank's bank of a job with a ``checkpoint``: the bank, and the
+    seconds, bytes read and numpy levels of its restore, with the seconds
+    of the process's first import of ``torch.distributed.checkpoint``
+    apart (``import_s``)."""
+    if job["kind"] == "tiled" and mesh.size(1) != 1:
+        raise ValueError("a tiled job takes the whole bank: its mesh must not split templates")
+    t0 = time.perf_counter()
+    import sixdpose_tpu_torch.models.checkpoint  # noqa: F401
+    t1 = time.perf_counter()
+    levels, nbytes = restore_local_levels(mesh, job["checkpoint"], job["class_id"], job["cfg"])
+    bank = bank_levels_from_numpy(levels, dev)
+    return {"bank": bank, "seconds": time.perf_counter() - t1, "import_s": t1 - t0, "bytes_read": nbytes,
+            "levels": levels}
+
+
 def _sharded(mesh, job, dev):
-    bank = local_bank(mesh, job["levels"], dev)
+    bank = _class_bank(mesh, job, dev)
     rgb, dep = _frames(job, dev)
     payload = ((rgb.shape[0] // mesh.size(0), 6, job["cfg"].top_k), "template")
 
@@ -97,7 +128,7 @@ def _sharded(mesh, job, dev):
 
 
 def _tiled(mesh, job, dev):
-    bank = bank_levels_from_numpy(job["levels"], dev)
+    bank = job["bank"] if "bank" in job else bank_levels_from_numpy(job["levels"], dev)
     rgb, dep = _frames(job, dev)
 
     def step():
@@ -131,7 +162,7 @@ def _tensor(a, dtype, dev):
 
 
 def _detect_icp(mesh, job, dev):
-    bank = local_bank(mesh, job["levels"], dev)
+    bank = _class_bank(mesh, job, dev)
     rgb, dep = _frames(job, dev)
     pts = _tensor(job["model_pts"], np.float32, dev)
     valid = _tensor(job.get("model_valid", np.ones(len(pts), bool)), np.bool_, dev)
@@ -193,6 +224,9 @@ def run_jobs(rank: int, world: int, device_type: str, jobs: list) -> list:
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
+            restore = _restore(mesh, job, dev) if "checkpoint" in job else None
+            if restore:
+                job = dict(job, bank=restore.pop("bank"))
             step, gather, merge = KINDS[job["kind"]](mesh, job, dev)
             t1 = time.perf_counter()
             LR.similarity_local_sparse_cuda.launches = 0
@@ -205,6 +239,8 @@ def run_jobs(rank: int, world: int, device_type: str, jobs: list) -> list:
                 "setup_s": t1 - t0,
                 "first_step_s": time.perf_counter() - t1,
             }
+            if restore:
+                res["restore"] = restore
             if job.get("reps"):
                 shape, axis = merge(out)
                 payload = torch.zeros(shape, dtype=torch.float64, device=dev)

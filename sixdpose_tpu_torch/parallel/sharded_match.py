@@ -15,6 +15,10 @@ inputs by its coordinate:
   lower flat index (``jax.lax.top_k``'s order), before box NMS on the merged
   set.  The payload is K candidates per shard, never a similarity map.
 
+A rank can also take its template shard straight from a bank checkpoint
+(``restore_local_bank``: ``TemplateBank.save_checkpoint``'s directory),
+reading its own rows only.
+
 Each candidate travels with its template's level-0 (width, height), so the
 NMS boxes need no gathered template table.  The fields of a candidate
 (int32 and float32) travel as one float64 tensor, which holds both exactly.
@@ -22,7 +26,8 @@ NMS boxes need no gathered template table.  The fields of a candidate
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple
+import os
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +45,7 @@ from sixdpose_tpu_torch.models.detector import _image, detect_frame_core
 from sixdpose_tpu_torch.models.multiscale import multiscale_multiclass_core
 from sixdpose_tpu_torch.models.templates import BankLevel
 from sixdpose_tpu_torch.ops.scale_proposal import bin_centers
+from sixdpose_tpu_torch.ops.similarity import build_template_kernels
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes
 
 
@@ -96,6 +102,52 @@ def shard_multiscale_bank(arrays: dict, shards: int, index: int, device) -> Mult
 def local_bank(mesh, levels: Sequence, device) -> DeviceBank:
     """This rank's template shard of a class's per-level bank."""
     return shard_bank(levels, mesh.size(1), _coordinate(mesh)[1], device)
+
+
+def restore_local_levels(mesh, path: str, class_id: str, cfg: DetectorConfig) -> Tuple[List[BankLevel], int]:
+    """This rank's template shard of class ``class_id`` of a bank checkpoint
+    (``TemplateBank.save_checkpoint`` at ``path``), as numpy ``BankLevel``s
+    in ``shard_bank``'s layout, and the bytes the rank read.
+
+    The rank reads its rows of ``feats`` (its ``Shard(0)`` block over
+    ``template``, as ``load_checkpoint(mesh=...)`` places it, into a plain
+    tensor) and the class's whole ``valid`` and ``whp``, which are small:
+    each level's kernel extent and feature count are the whole class's, as
+    ``TemplateBank.finalized`` builds them.  ``Shard(0)`` splits as
+    ``torch.chunk`` does, in blocks of ``ceil(N / shards)``: the rows of
+    ``shard_bank``'s shard, whose padding (zero templates with ``nfeat`` 1)
+    fills the rest of the block."""
+    from sixdpose_tpu_torch.models import checkpoint as CK  # torch.distributed.checkpoint: 1-2 s to import
+
+    arrays = os.path.join(path, "arrays")
+    shapes = CK.class_shapes(arrays, class_id)
+    valid_key, whp_key, feats_key = (CK.key(class_id, n) for n in ("valid", "whp", "feats"))
+    first, rows, block = CK.shard_rows(shapes[feats_key][0][0], mesh)
+    got, nbytes = CK.read_arrays(arrays, shapes, {feats_key: (first, rows)})
+    valid, whp, feats = (got[k].numpy() for k in (valid_key, whp_key, feats_key))
+    mine = slice(first, first + rows)
+    out = []
+    for l in range(cfg.pyramid_levels):
+        counts = valid[:, l].sum(-1).astype(np.int32)
+        fmax = int(counts.max())
+        f = np.zeros((block, fmax, 3), np.int32)
+        v = np.zeros((block, fmax), bool)
+        nfeat = np.ones((block,), np.int32)
+        wh = np.zeros((block, 2), np.int32)
+        f[:rows], v[:rows] = feats[:, l, :fmax], valid[mine, l, :fmax]
+        nfeat[:rows], wh[:rows] = counts[mine], whp[mine, l, :2]
+        kern = build_template_kernels(f, v, int(whp[:, l, 1].max()) + 1, int(whp[:, l, 0].max()) + 1,
+                                      8 * cfg.num_modalities)
+        out.append(BankLevel(kernels=kern, nfeat=nfeat, wh=wh, feats=f, valid=v))
+    return out, nbytes
+
+
+def restore_local_bank(mesh, path: str, class_id: str, cfg: DetectorConfig, device) -> DeviceBank:
+    """This rank's template shard of class ``class_id`` of a bank checkpoint
+    on ``device``, built from the rows the rank reads
+    (``restore_local_levels``): equal to ``local_bank(mesh,
+    bank.finalized(class_id), device)`` of the saved bank."""
+    return bank_levels_from_numpy(restore_local_levels(mesh, path, class_id, cfg)[0], device)
 
 
 def local_multiscale_bank(mesh, arrays: dict, device) -> MultiScaleBank:

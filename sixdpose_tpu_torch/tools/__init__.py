@@ -19,5 +19,10 @@ reads and writes the dataset's files, so a machine without ``yaml`` and
   a test image;
 - ``bench_multiscale_multiclass``: the multi-scale sweep on
   ``synthetic.multiscale_workload``;
-- ``bench_scaling``: data-parallel scaling over ``parallel``.
+- ``bench_scaling``: data-parallel scaling over ``parallel``;
+- ``bench_stage_breakdown``: the match frame's time by stage, as prefix
+  differences, on the bench bank;
+- ``bench_local_refine`` (twin of ``bench_pallas_refine``): the refine
+  kernel against its plain version, exactly, and its time beside the plain
+  version's, the grouped convolution's and the bound.
 """

@@ -9,6 +9,7 @@ timer (the reference's observability is ad-hoc wall-clock prints, test.cpp:
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 from typing import Dict
 
@@ -104,6 +105,13 @@ def ms_per_call(fn, reps: int, device) -> float:
     for _ in range(reps):
         fn()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def median_ms_per_call(fn, reps: int, repeats: int, device) -> float:
+    """The median of ``repeats`` windows of ``ms_per_call(fn, reps,
+    device)``, after one warm-up call."""
+    fn()
+    return statistics.median(ms_per_call(fn, reps, device) for _ in range(repeats))
 
 
 def device_ms_per_call(fn, reps: int) -> dict:

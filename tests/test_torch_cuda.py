@@ -815,3 +815,67 @@ def test_fused_frames_over_data_equal_the_single_process_card(cuda):
                 assert res[r][i]["launches"] > 0
                 for a, b in zip(res[r][i]["outputs"], want):
                     np.testing.assert_array_equal(a[f], b.cpu().numpy())
+
+
+# -- the bank checkpoint and the measurement twins -----------------------------------
+
+
+def _checkpoint_rank(rank, world, path, cid, cfg):
+    """On a card rank of mesh (2, 2, 1): ``load_checkpoint`` onto the mesh
+    and this rank's ``restore_local_bank``, as numpy, with their devices."""
+    from sixdpose_tpu_torch.models.templates import TemplateBank
+    from sixdpose_tpu_torch.parallel import make_mesh
+    from sixdpose_tpu_torch.parallel.mesh import rank_device
+    from sixdpose_tpu_torch.parallel.sharded_match import restore_local_bank
+
+    mesh = make_mesh(2, 2, 1)
+    full = TemplateBank.load_checkpoint(path, cfg, mesh)
+    bank = restore_local_bank(mesh, path, cid, cfg, rank_device("cuda", rank))
+    return {"coordinate": tuple(mesh.get_coordinate()),
+            "templates": [[(lv.features, lv.width, lv.height) for lv in t] for t in full.templates[cid]],
+            "shard_device": full.shards[cid]["feats"].to_local().device.type,
+            "bank_device": bank.kernels[0].device.type,
+            "bank": [[t.cpu().numpy() for t in getattr(bank, f)] for f in ("kernels", "nfeats", "whs", "feats", "valids")]}
+
+
+def test_checkpoint_restores_onto_the_card_as_on_the_cpu(cuda, tmp_path):
+    """Four ranks sharing the card over gloo: the mesh load's shards and each
+    rank's restored bank lie on the card and equal the CPU restore
+    (``shard_bank`` of the saved bank, to the bit); the checkpoint job of
+    ``run_jobs`` equals its ``levels`` job, one refine launch a level."""
+    from sixdpose_tpu_torch.parallel.distributed import run_ranks
+    from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
+    from sixdpose_tpu_torch.parallel.sharded_match import shard_bank
+
+    cid, det, frames, depths = _parallel_case(n_templates=13)  # 13 over template 2 splits 7 / 6
+    path = str(tmp_path / "ckpt")
+    det.bank.save_checkpoint(path)
+    levels = det.bank.finalized(cid)
+    for res in run_ranks(_checkpoint_rank, 4, (path, cid, det.cfg), device_type="cuda", timeout=300):
+        assert res["shard_device"] == res["bank_device"] == "cuda"
+        assert len(res["templates"]) == 13
+        for t, got in zip(det.bank.templates[cid], res["templates"]):
+            assert all(np.array_equal(a.features, f) and (a.width, a.height) == (w, h) for a, (f, w, h) in zip(t, got))
+        want = shard_bank(levels, 2, res["coordinate"][1], "cpu")
+        for f, got in zip(("kernels", "nfeats", "whs", "feats", "valids"), res["bank"]):
+            for a, b in zip(got, getattr(want, f)):
+                np.testing.assert_array_equal(a, b.numpy())
+    common = dict(mesh=(2, 2, 1), rgb=frames, depth=depths, cfg=det.cfg, threshold=30.0)
+    jobs = [dict(kind="sharded", levels=levels, **common), dict(kind="sharded", checkpoint=path, class_id=cid, **common)]
+    for r, (by_levels, by_checkpoint) in enumerate(run_ranks(run_jobs, 4, ("cuda", jobs), device_type="cuda",
+                                                             timeout=300)):
+        assert by_checkpoint["launches"] == len(det.cfg.t_at_level) - 1, r
+        for a, b in zip(by_checkpoint["outputs"], by_levels["outputs"]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_local_refine_twin_is_equivalent_on_the_card(cuda):
+    """``bench_local_refine`` at the JAX tool's K = 128, F = 254: the kernel
+    equals its plain version exactly, and so does the grouped conv."""
+    from sixdpose_tpu_torch.tools import bench_local_refine
+
+    before = LR.similarity_local_sparse_cuda.launches
+    r = bench_local_refine.report(device=cuda, reps=2)
+    assert r["equivalent"] and r["grouped_conv_equal"]
+    assert LR.similarity_local_sparse_cuda.launches > before
+    assert 0 < r["bound_ms"] < r["kernel_ms"]

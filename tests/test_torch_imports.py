@@ -1,7 +1,7 @@
 """The port imports neither JAX nor the JAX package.
 
-In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib`` and
-``sixdpose_tpu`` (exact top-level names: ``sixdpose_tpu_torch`` shares the
+In a subprocess whose ``sys.meta_path`` refuses ``jax``, ``jaxlib``,
+``orbax`` and ``sixdpose_tpu`` (exact top-level names: ``sixdpose_tpu_torch`` shares the
 prefix and must still import), every module of the port and
 ``chip_smoke`` must import, and none of them may import ``yaml`` or ``PIL``
 at module import.  The sources must not name JAX either.
@@ -18,7 +18,7 @@ PKG = os.path.join(ROOT, "sixdpose_tpu_torch")
 BLOCKER = r"""
 import importlib, importlib.abc, pkgutil, sys
 
-BLOCKED = {"jax", "jaxlib", "sixdpose_tpu"}
+BLOCKED = {"jax", "jaxlib", "orbax", "sixdpose_tpu"}
 
 class Block(importlib.abc.MetaPathFinder):
     def find_spec(self, name, path=None, target=None):

@@ -16,6 +16,7 @@ JAX's ``vis_poses`` writes the port's overlay PNGs byte for byte.
 
 import contextlib
 import io
+import json
 import os
 import re
 import runpy
@@ -23,6 +24,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 import yaml
 
 jax = pytest.importorskip("jax")
@@ -37,15 +39,25 @@ from sixdpose_tpu_torch.data import inout
 from sixdpose_tpu_torch.eval.misc import model_diameter
 from sixdpose_tpu_torch.geometry.render import render
 from sixdpose_tpu_torch.geometry.view_sampler import sample_views
-from sixdpose_tpu_torch.models.detector import Detector
-from sixdpose_tpu_torch.tools import calc_gt_stats, detect_sixd, eval_calc_errors, eval_loc, train_templates, vis_poses
+from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
+from sixdpose_tpu_torch.tools import (
+    bench_local_refine,
+    bench_stage_breakdown,
+    calc_gt_stats,
+    detect_sixd,
+    eval_calc_errors,
+    eval_loc,
+    train_templates,
+    vis_poses,
+)
 from sixdpose_tpu_torch.tools.eval_loc import localization_scores
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = np.array([[240.0, 0, 120.0], [0, 240.0, 90.0], [0, 0, 1.0]])
 IMW, IMH = 240, 180
 TWINS = ("train_templates", "detect_sixd", "calc_gt_stats", "eval_calc_errors", "eval_loc",
-         "bench_multiscale_multiclass", "bench_scaling", "vis_poses")
+         "bench_multiscale_multiclass", "bench_scaling", "vis_poses", "bench_stage_breakdown", "bench_local_refine")
+JAX_TOOL = {"bench_local_refine": "bench_pallas_refine"}  # the port's twin by the JAX tool it answers
 
 
 def _box_model():
@@ -192,13 +204,15 @@ def test_gt_stats_equal_jax(chain, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", TWINS)
 def test_twin_takes_the_jax_tools_flags(name):
     flag = re.compile(r"add_argument\(\s*\"(--[a-z-]+)\"")
-    jax_flags = set(flag.findall(open(os.path.join(REPO, "tools", f"{name}.py")).read()))
+    jax_flags = set(flag.findall(open(os.path.join(REPO, "tools", f"{JAX_TOOL.get(name, name)}.py")).read()))
     port_flags = set(flag.findall(open(os.path.join(REPO, "sixdpose_tpu_torch", "tools", f"{name}.py")).read()))
-    # The JAX multi-scale sweep's table budget and the TPU timing modes have
-    # no counterpart: the port builds its coarse weights per frame and
-    # times the card with CUDA events.
+    # The JAX multi-scale sweep's table budget, the TPU timing modes and
+    # chain lengths, and the Pallas variants have no counterpart: the port
+    # builds its coarse weights per frame, times the card with CUDA events
+    # and has one refine kernel.
     absent = {"bench_multiscale_multiclass": {"--budget-gb", "--fused-budget-gb"},
-              "bench_scaling": {"--platform", "--chained"}}.get(name, set())
+              "bench_scaling": {"--platform", "--chained"}, "bench_stage_breakdown": {"--k"},
+              "bench_local_refine": {"--variants"}}.get(name, set())
     assert jax_flags - absent <= port_flags, sorted(jax_flags - absent - port_flags)
 
 
@@ -219,3 +233,41 @@ def test_vis_poses_pngs_equal_jax(chain, tmp_path, monkeypatch, mode):
         vis = inout.load_im(str(tmp_path / "port" / name))
         rgb = inout.load_im(os.path.join(chain["root"], "test", "01", "rgb", name[3:]))
         assert (vis != rgb).any(axis=-1).sum() > 500  # the box's silhouette is drawn
+
+
+def test_stage_breakdown_twin_prints_the_jax_keys(tmp_path):
+    """At four templates of the bench bank on a 128 x 160 crop: one JSON
+    line with the JAX tool's keys and stage names, and its ``--out``."""
+    names = re.findall(r'\("(\w+)", s_\w+\)', open(os.path.join(REPO, "tools", "bench_stage_breakdown.py")).read())
+    out = _run(bench_stage_breakdown.main, ["--device", "cpu", "--templates", "4", "--hw", "128", "160", "--reps", "1",
+                                            "--repeats", "1", "--out", str(tmp_path / "stages.json")])
+    line = json.loads(out.strip().splitlines()[-2])
+    assert set(line) == {"prefix_ms", "stage_ms", "fps_full"}
+    assert list(line["prefix_ms"]) == list(line["stage_ms"]) == names == list(bench_stage_breakdown.STAGES)
+    assert json.loads((tmp_path / "stages.json").read_text())["provenance"]["backend"] == "cpu"
+
+
+def test_stage_breakdown_prefixes_end_in_detect_frame_core():
+    """The last prefix is ``detect_frame_core``'s frame, and the refine
+    prefix's candidates, sorted as the core sorts them, are its candidates."""
+    rgb, dep, bank = bench_stage_breakdown.workload("cpu", 4, (128, 160))
+    stages = bench_stage_breakdown.prefixes(rgb, dep, bank, threshold=30.0)
+    full = stages["full"]()
+    want = detect_frame_core(rgb, dep, bank, bench_stage_breakdown.CFG, 30.0)
+    assert all(torch.equal(a, b) for a, b in zip(full, want))
+    tid, x, y, score = stages["refine"]()
+    order = torch.argsort(-score, dim=-1, stable=True)
+    assert all(torch.equal(torch.gather(a, -1, order), b) for a, b in zip((tid, x, y, score), want[:4]))
+    assert (want[3] >= 0).any()
+
+
+def test_local_refine_twin_prints_the_variant_line(tmp_path):
+    """At K = 8, F = 16: the JAX tool's ``{"variant", "equivalent"}`` line
+    (exact equality with the plain version), then the times and the bound."""
+    out = _run(bench_local_refine.main, ["--device", "cpu", "--K", "8", "--F", "16", "--reps", "1",
+                                         "--out", str(tmp_path / "refine.json")]).strip().splitlines()
+    assert json.loads(out[0]) == {"variant": "local_refine", "equivalent": True}
+    times = json.loads(out[1])
+    assert {"kernel_ms", "plain_ms", "grouped_conv_ms", "bound_ms", "bound_by"} <= set(times)
+    report = json.loads((tmp_path / "refine.json").read_text())
+    assert report["grouped_conv_equal"] and report["bytes"] > 0
