@@ -50,7 +50,10 @@ Drives the port's main paths, and checks every result:
   ``multiscale_multiclass_over_data``) on ranks that share the one card;
 - the SIXD tool twins (``sixdpose_tpu_torch/tools``) at the mini-SIXD size
   of the JAX package's tool test (240 x 180, one object, two test views),
-  and the measurement twins at the JAX tools' defaults.
+  the T-LESS ``check_poses_tless`` twin on a mini T-LESS tree of the same
+  views, and the measurement twins at the JAX tools' defaults;
+- bench.py's twin, ``python -m sixdpose_tpu_torch.bench``, at bench.py's
+  workload (the bench workload above), as a user runs it.
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -92,25 +95,28 @@ non-zero:
    frame under ``torch.cuda.set_sync_debug_mode("error")`` (nothing may
    wait for the device); the GPU results must equal the port's CPU results
    within the tolerances of ``FUSED_TOL``;
-10. refine_mc: the same for ``FusedMultiClassPipeline`` on the multi-class
-   workload at 55 and 30 (96 active hypotheses per class);
-11. refine_golden, mc_golden and ms_golden: ``FusedPipeline``, the
-   multi-class match and ``FusedMultiClassPipeline`` on the card against the JAX
-   goldens of the planted scenes, each planted object's top pose moving it
-   by its planted shift; both multi-scale matchers against the JAX golden
-   of the rescaled planted object, found at its planted scale and place;
-12. render: the nine meshes at 320 x 240, a batch of 16 poses each through
+10. render: the nine meshes at 320 x 240, a batch of 16 poses each through
    ``render_depth_batch`` and the training renderer, and ``render`` in all
    three modes, the card against the port's CPU run (bitwise), the JAX
    golden's renders of ``tools/torch_port_synth_golden.py`` on the card
    (bitwise), a batch under ``set_sync_debug_mode("error")``, ms per batch;
-13. train_synth: the full-width bank trained on the card (templates per
+11. train_synth: the full-width bank trained on the card (templates per
    class, training seconds), and the textured box at 60 views trained on
    the card and on the CPU: equal templates and infos; the full-width bank
    saved by ``TemplateBank.save_checkpoint`` and restored by
    ``load_checkpoint`` (its padded arrays equal the trained bank's to the
    bit, its infos exactly; save and restore seconds, bytes on disk), and
    the restored bank is the one ``synth`` serves;
+12. refine_mc: as refine_vga, for ``FusedMultiClassPipeline`` on the multi-class
+   workload at 55 and 30 (96 active hypotheses per class); its CPU run (about
+   20 s a frame) goes on in a spawned worker beside the golden phases that
+   follow (13 and 14), which report no time, and the phase's line follows
+   ``synth_golden``'s;
+13. refine_golden, mc_golden and ms_golden: ``FusedPipeline``, the
+   multi-class match and ``FusedMultiClassPipeline`` on the card against the JAX
+   goldens of the planted scenes, each planted object's top pose moving it
+   by its planted shift; both multi-scale matchers against the JAX golden
+   of the rescaled planted object, found at its planted scale and place;
 14. synth_golden: ``run_benchmark`` and the service on the card at the
    golden's cut size over its JAX-trained bank: JAX's targets, hits, VSD
    hits and per-object recall, and the service's estimates (fused, host and
@@ -177,6 +183,19 @@ non-zero:
    ``bench_stage_breakdown`` (ms per prefix and per stage of the bench
    frame) and ``bench_local_refine`` (``equivalent: true``, then the
    kernel's, the plain version's and the grouped conv's ms and the bound);
+   ``check_poses_tless`` through its ``main`` on a mini T-LESS tree of the
+   two views, renders on the card and on the CPU: the same PNGs, byte for
+   byte;
+19b. bench: ``python -m sixdpose_tpu_torch.bench`` in a process of its own
+   with ``SIXDPOSE_BENCH_BUDGET_S`` at ``BENCH_BUDGET_S``: bench.py's
+   cumulative record (``value`` = match fps, ``vs_baseline``,
+   ``detect_refine_fps``, ``detect_refine_vs_baseline``,
+   ``match_fps_b{2,4,8}``, every one above 0, the card's name and power
+   limit, the refine kernel's launches in that run), re-emitted on the
+   ``bench`` line; then the gate bench.py lacks on the synthetic bank, at
+   thresholds 75 and 30: the twin's one-frame chain and one step of its
+   batch chain at B = 2, 4 and 8 (bench.py's batch frames), on the card
+   against the port's CPU on the same frames, to the bit;
 20. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
@@ -208,8 +227,9 @@ non-zero:
    source, the TPU kernels it replaces (the seg kernels replace none: the
    JAX code they take the place of), its launches in the main paths'
    phases (in all and per phase, ``synth_golden``, ``synth``, ``lchf``,
-   ``seg``, ``parallel`` (summed over every card rank) and ``tools`` among
-   them), its error against the plain version, and its time
+   ``seg``, ``parallel`` (summed over every card rank), ``tools`` and
+   ``bench`` (the twin's process) among them), its error against the plain
+   version, and its time
    beside the plain version's, the library call's and the bound (the
    refine kernel at the bench B=1 call, the multi-class call and the
    multi-scale call; the seg kernels at the bin-picking frame's inputs,
@@ -227,6 +247,7 @@ and the ranks talk over NCCL.
 
 from __future__ import annotations
 
+import contextlib
 import io
 import json
 import multiprocessing
@@ -245,10 +266,10 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from sixdpose_tpu_torch import bench as TBN
 from sixdpose_tpu_torch import benchmark as TB
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
-from sixdpose_tpu_torch.convert import refine_bank_from_numpy
 from sixdpose_tpu_torch.eval import pose_error
 from sixdpose_tpu_torch.eval.misc import model_diameter
 from sixdpose_tpu_torch.geometry import render as GR
@@ -280,7 +301,7 @@ from sixdpose_tpu_torch.models import train as TT
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleMultiClass
-from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline, detect_refine_core
+from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline
 from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
@@ -325,9 +346,11 @@ from sixdpose_tpu_torch.tools import bench_scaling as tools_scaling
 from sixdpose_tpu_torch.tools import bench_stage_breakdown as tools_stages
 from sixdpose_tpu_torch.tools import eval_loc as tools_loc
 from sixdpose_tpu_torch.tools import train_templates as tools_train
+from sixdpose_tpu_torch.tools import check_poses_tless as tools_tless
 from sixdpose_tpu_torch.tools import vis_poses as tools_vis
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+nvidia_smi = TBN.nvidia_smi
 TESTDATA = os.path.join(ROOT, "sixdpose_tpu_torch", "testdata")
 BENCH_CFG = DetectorConfig(t_at_level=(5, 8))
 LOW_THRESHOLD = 30.0
@@ -391,14 +414,6 @@ def ptxas_summary(log: str) -> list:
 def sm_clock_mhz() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
-
-
-def nvidia_smi() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 @contextmanager
@@ -572,20 +587,6 @@ def fused_diff(a, b, n_points: int, n_verify: int) -> dict:
             "within_tol": bool(within), "active": int(act.sum())}
 
 
-def refine_runner(cid, det, b: dict, device):
-    """``detect_refine_core(rgb, depth, threshold)`` of the bench workload on
-    ``device``: the detector's bank and bench.py's refine stage ``b``
-    (``synthetic.bench_refine_bank``)."""
-    bank = det.device_bank(cid)
-    rb = refine_bank_from_numpy(b["fields"], b["win"], device)
-    K, vp, vc = (torch.from_numpy(b[n]).to(device) for n in ("K", "verify_pts", "verify_colors"))
-
-    def run(rgb, depth, threshold):
-        return detect_refine_core(rgb, depth, bank, BENCH_CFG, threshold, rb, b["icp"], K, b["max_refine"], vp, vc)
-
-    return run
-
-
 def frame_tensors(frames, depths, device, i: int = 0):
     return torch.from_numpy(frames[i]).to(device), torch.from_numpy(depths[i].astype(np.int32)).to(device)
 
@@ -593,25 +594,26 @@ def frame_tensors(frames, depths, device, i: int = 0):
 def phase_refine_vga(dev, cid, det, det_cpu, frames, depths):
     t0 = time.perf_counter()
     b = synthetic.bench_refine_bank(det.device_bank(cid).whs[0].cpu().numpy())
-    run, run_cpu = refine_runner(cid, det, b, dev), refine_runner(cid, det_cpu, b, "cpu")
     rgb, dep = frame_tensors(frames, depths, dev)
     rgb_c, dep_c = frame_tensors(frames, depths, "cpu")
     thresholds = (75.0, LOW_THRESHOLD)
+    run = {thr: TBN.refine_runner(dep, det.device_bank(cid), b, thr) for thr in thresholds}
+    run_cpu = {thr: TBN.refine_runner(dep_c, det_cpu.device_bank(cid), b, thr) for thr in thresholds}
     LR.similarity_local_sparse_cuda.launches = 0
-    gpu = {thr: run(rgb, dep, thr) for thr in thresholds}
+    gpu = {thr: run[thr](rgb) for thr in thresholds}
     torch.cuda.synchronize()
     # One frame in which any wait for the device raises: nothing between the
     # upload above and the readback below may synchronize.
     torch.cuda.set_sync_debug_mode("error")
     try:
-        unsynced = run(rgb, dep, LOW_THRESHOLD)
+        unsynced = run[LOW_THRESHOLD](rgb)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches > 0, "the refine kernel was not launched in the detect+refine frames")
     n_pts, n_ver = b["fields"][0].shape[1], len(b["verify_pts"])
-    diffs = {str(thr): fused_diff(gpu[thr], run_cpu(rgb_c, dep_c, thr), n_pts, n_ver) for thr in thresholds}
+    diffs = {str(thr): fused_diff(gpu[thr], run_cpu[thr](rgb_c), n_pts, n_ver) for thr in thresholds}
     for thr, d in diffs.items():
         check(d["within_tol"], f"detect_refine_core on the GPU differs from the CPU at threshold {thr}: {d}")
     check(diffs[str(LOW_THRESHOLD)]["active"] == b["max_refine"], f"not {b['max_refine']} active candidates at {LOW_THRESHOLD}")
@@ -658,15 +660,14 @@ def flat_classes(out):
 def multiclass_setup(dev):
     """The synthetic benchmark's multi-class workload at full width
     (``synthetic.multiclass_workload``: 9 classes x 810 templates, 320 x
-    240), its detector, and its matcher and fused pipeline on the card and
-    on the CPU."""
+    240), its detector, its matcher on the card and on the CPU, and its
+    fused pipeline on the card."""
     t0 = time.perf_counter()
     w = synthetic.multiclass_workload()
     det = synthetic.multiclass_detector(w, dev)
-    args = synthetic.multiclass_pipeline_args(w)
     mc = {d: MultiClassMatcher(det, device=d) for d in (dev, "cpu")}
-    pipes = {d: FusedMultiClassPipeline(det, w["K"], device=d, **args) for d in (dev, "cpu")}
-    return w, mc[dev], mc["cpu"], pipes[dev], pipes["cpu"], time.perf_counter() - t0
+    pipe = FusedMultiClassPipeline(det, w["K"], device=dev, **synthetic.multiclass_pipeline_args(w))
+    return w, mc[dev], mc["cpu"], pipe, time.perf_counter() - t0
 
 
 def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
@@ -813,14 +814,33 @@ def phase_coarse_matmul(dev, w, mc, mc_cpu):
     return (maps, feats, valid, kern, t_c), (lm_maps, lm_feats, lm_valid, lm_kern, 8)
 
 
-def phase_refine_mc(dev, w, pipe, pipe_cpu):
+def refine_mc_cpu(thresholds) -> dict:
+    """The fused multi-class frame on the CPU (a spawned worker: the
+    workload drawn again from its seed, its pipeline built on the CPU) at
+    each of ``thresholds``: {threshold: (outputs as numpy, seconds)}."""
+    w = synthetic.multiclass_workload()
+    pipe = FusedMultiClassPipeline(synthetic.multiclass_detector(w, "cpu"), w["K"], device="cpu",
+                                   **synthetic.multiclass_pipeline_args(w))
+    out = {}
+    for thr in thresholds:
+        t = time.perf_counter()
+        res = pipe(w["rgb"], w["depth"], thr)
+        out[thr] = ([a.numpy() for a in res], time.perf_counter() - t)
+    return out
+
+
+def phase_refine_mc(dev, w, pipe):
     """``FusedMultiClassPipeline`` on the full-width workload (9 classes x
     96 hypotheses x 4 seeds = 3456 ICP candidates) at 55 and at
-    LOW_THRESHOLD, against the port's CPU run, and one more frame under
-    ``set_sync_debug_mode("error")``."""
+    LOW_THRESHOLD, and one more frame under ``set_sync_debug_mode("error")``.
+    The CPU run to hold them against takes about 20 s a frame, so it starts
+    after the card's frames, in a spawned worker beside the phases that
+    follow (golden checks, which report no time): returns what
+    ``finish_refine_mc`` needs to check and emit the phase once the worker
+    is done."""
     t0 = time.perf_counter()
-    rgb, dep = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
     thresholds = (w["threshold"], LOW_THRESHOLD)
+    rgb, dep = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
     LR.similarity_local_sparse_cuda.launches = 0
     gpu = {thr: pipe(rgb, dep, thr) for thr in thresholds}
     torch.cuda.synchronize()
@@ -833,24 +853,37 @@ def phase_refine_mc(dev, w, pipe, pipe_cpu):
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == len(thresholds) + 1, f"{launches} refine kernel launches in {len(thresholds) + 1} frames")
     gpu_s = time.perf_counter() - t0
-    t1 = time.perf_counter()
-    cpu = {thr: pipe_cpu(w["rgb"], w["depth"], thr) for thr in thresholds}
-    cpu_s = (time.perf_counter() - t1) / len(thresholds)
+    pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
+    cpu_run = pool.submit(refine_mc_cpu, thresholds)
+    return {"t0": t0, "gpu_s": gpu_s, "pool": pool, "cpu_run": cpu_run, "w": w, "pipe": pipe,
+            "thresholds": thresholds, "gpu": gpu, "unsynced": unsynced, "launches": launches}
+
+
+def finish_refine_mc(p: dict) -> int:
+    """The card's fused multi-class frames of ``phase_refine_mc`` against
+    the worker's CPU run, within ``FUSED_TOL``, a second card run of the
+    same frame to the bit, then the phase's line.  Returns its launches."""
+    try:
+        cpu = p["cpu_run"].result(timeout=PARALLEL_TIMEOUT)
+    finally:
+        p["pool"].shutdown(cancel_futures=True)
+    w, gpu, thresholds = p["w"], p["gpu"], p["thresholds"]
     n_pts, n_ver = w["num_points"], min(len(v) for v in w["verify_pts"].values())
-    diffs = {str(thr): fused_diff(flat_classes(gpu[thr]), flat_classes(cpu[thr]), n_pts, n_ver) for thr in thresholds}
+    diffs = {str(thr): fused_diff(flat_classes(gpu[thr]), flat_classes(cpu[thr][0]), n_pts, n_ver)
+             for thr in thresholds}
     for thr, d in diffs.items():
         check(d["within_tol"], f"detect_refine_multiclass_core on the GPU differs from the CPU at threshold {thr}: {d}")
     active = {str(thr): gpu[thr][8].sum(1).tolist() for thr in thresholds}
     check(min(active[str(LOW_THRESHOLD)]) == w["max_refine"], f"not {w['max_refine']} active per class: {active}")
-    rerun = fused_diff(flat_classes(unsynced), flat_classes(gpu[LOW_THRESHOLD]), n_pts, n_ver)
+    rerun = fused_diff(flat_classes(p["unsynced"]), flat_classes(gpu[LOW_THRESHOLD]), n_pts, n_ver)
     check(rerun["bitwise"], "a second GPU run of the same frame differs")
-    c_n = len(pipe.class_ids)
-    emit("refine_mc", t0, launches=launches, thresholds=list(thresholds),
+    c_n = len(p["pipe"].class_ids)
+    emit("refine_mc", p["t0"], launches=p["launches"], thresholds=list(thresholds),
          icp_candidates=c_n * w["max_refine"] * w["icp_seeds"], active_per_class=active, gpu_vs_cpu=diffs,
-         tolerance=FUSED_TOL, sync_free_frame=True, rerun_bitwise_equal=True, gpu_seconds_3_frames=gpu_s,
-         cpu_seconds_per_frame=cpu_s,
+         tolerance=FUSED_TOL, sync_free_frame=True, rerun_bitwise_equal=True, gpu_seconds_3_frames=p["gpu_s"],
+         cpu_seconds_per_frame=sum(t for _, t in cpu.values()) / len(thresholds),
          verify_low_class0=[round(float(v), 4) for v in gpu[LOW_THRESHOLD][7][0, :8].cpu()])
-    return launches
+    return p["launches"]
 
 
 def phase_mc_golden(dev):
@@ -1327,10 +1360,10 @@ def staged_ms(call, reps: int, stages, events) -> dict:
     return {s: statistics.median(v) for s, v in per.items()}
 
 
-def stage_ms(run, rgb, dep, threshold: float, reps: int, match: str = "detect_frame_core") -> dict:
-    """Median ms of each of ``STAGES`` of a detect+refine frame over ``reps``
-    frames."""
-    return staged_ms(lambda: run(rgb, dep, threshold), reps, STAGES, lambda marks: stage_events(marks, match))
+def stage_ms(frame, reps: int, match: str = "detect_frame_core") -> dict:
+    """Median ms of each of ``STAGES`` of the detect+refine frame
+    ``frame()`` over ``reps`` frames."""
+    return staged_ms(frame, reps, STAGES, lambda marks: stage_events(marks, match))
 
 
 # Float operations per unit of work, counted from the code: per pixel of the
@@ -1379,7 +1412,7 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     out = {
         "match_frame_ms": {str(t): cuda_ms(lambda t=t: mc.match_arrays(rgb, dep, t), reps=10) for t in thresholds},
         "fused_frame_ms": {str(t): cuda_ms(lambda t=t: pipe(rgb, dep, t), reps=5) for t in thresholds},
-        "fused_stage_ms": {str(t): stage_ms(pipe, rgb, dep, t, reps=5, match="match_multiclass_core") for t in thresholds},
+        "fused_stage_ms": {str(t): stage_ms(lambda t=t: pipe(rgb, dep, t), reps=5, match="match_multiclass_core") for t in thresholds},
     }
     k = len(pipe.class_ids) * w["max_refine"] * w["icp_seeds"]
     bounds = refine_frame_bounds(*rgb.shape[:2], k, w["num_points"], w["icp"])
@@ -1406,10 +1439,10 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
     frame_b4 = cuda_ms(lambda: detect_frame_core(rgb4, dep4, bank, BENCH_CFG, 75.0), reps=10) / 4
 
     # The detect+refine frame at B=1, whole and by stage.
-    run = refine_runner(cid, det, refine_stage, dev)
     thresholds = (75.0, LOW_THRESHOLD)
-    refine_frame = {str(t): cuda_ms(lambda t=t: run(rgb1, dep1, t), reps=20) for t in thresholds}
-    refine_stages = {str(t): stage_ms(run, rgb1, dep1, t, reps=10) for t in thresholds}
+    run = {t: TBN.refine_runner(dep1, bank, refine_stage, t) for t in thresholds}
+    refine_frame = {str(t): cuda_ms(lambda t=t: run[t](rgb1), reps=20) for t in thresholds}
+    refine_stages = {str(t): stage_ms(lambda t=t: run[t](rgb1), reps=10) for t in thresholds}
     bounds = refine_frame_bounds(*rgb1.shape[:2], refine_stage["max_refine"], refine_stage["fields"][0].shape[1],
                                  refine_stage["icp"])
     low = refine_stages[str(LOW_THRESHOLD)]
@@ -2558,7 +2591,7 @@ def phase_seg_golden(dev) -> dict:
 PARALLEL_REPS = 10
 PARALLEL_TIMEOUT = 300.0  # seconds for each spawn of ranks; a rank that fails or hangs fails the phase
 PARALLEL_CPU_THREADS = 2  # four CPU ranks on the machine's eight cores
-PARALLEL_PROFILE = 3  # steps rank 0 profiles for its device time
+PARALLEL_PROFILE = 1  # steps rank 0 profiles for its device time
 SCALING_ITERS = 20
 FUSED_KINDS = ("fused_mc", "fused_ms")  # held against the single-process pipeline on the card, not CPU ranks
 FRAME_SEEDS = (1, 2, 3)  # the fused jobs' frames beyond each workload's own
@@ -2897,11 +2930,65 @@ def phase_tools(dev) -> dict:
     check(card["recall"] == cpu["recall"], f"recall {card['recall']} on the card, {cpu['recall']} on the CPU")
     check(card["launches"] > 0, "the twins' detection did not launch the refine kernel")
     vis = vis_overlays(dev, scene, cpu["ests"])
+    tless = check_poses_tless(dev, scene)
     twins = measurement_twins()
     emit("tools", t0, train=card["stats"], templates=len(card["templates"]), recall=card["recall"],
          adi_mm=[e["errors"][0] for e in card["errors"]], estimates_diff=est_diff, adi_diff_mm=err_diff,
-         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s, vis_poses=vis, measurement_twins=twins)
+         card_equals_cpu=True, launches=card["launches"], card_seconds=card_s, vis_poses=vis,
+         check_poses_tless=tless, measurement_twins=twins)
     return {"launches": card["launches"], "recall": card["recall"]}
+
+
+def tless_tree(root: str, scene) -> None:
+    """A mini T-LESS tree of ``scene`` under ``root``: the textured box as
+    ``models_cad/obj_01.ply`` and its views as ``test_primesense/01`` (RGB,
+    depth in T-LESS's 0.1 mm units, info.yml, gt.yml with each view's box)."""
+    from sixdpose_tpu_torch.data import inout
+
+    os.makedirs(os.path.join(root, "models_cad"))
+    inout.save_ply(os.path.join(root, "models_cad", "obj_01.ply"), TB.make_models()["texbox"])
+    scene_dir = os.path.join(root, "test_primesense", "01")
+    info, gts = {}, {}
+    for sub in ("rgb", "depth"):
+        os.makedirs(os.path.join(scene_dir, sub))
+    for im_id, (rgb, depth, gt) in enumerate(scene):
+        inout.save_im(os.path.join(scene_dir, "rgb", f"{im_id:04d}.png"), rgb)
+        inout.save_depth(os.path.join(scene_dir, "depth", f"{im_id:04d}.png"), depth.astype(np.uint16) * 10)
+        x, y = np.nonzero(depth > 0)[::-1]
+        info[im_id] = {"cam_K": TOOLS_K, "depth_scale": 0.1}
+        gts[im_id] = [dict(gt, obj_bb=[int(x.min()), int(y.min()), int(x.max() - x.min()), int(y.max() - y.min())])]
+    inout.save_info(os.path.join(scene_dir, "info.yml"), info)
+    inout.save_gt(os.path.join(scene_dir, "gt.yml"), gts)
+
+
+def check_poses_tless(dev, scene) -> dict:
+    """The ``check_poses_tless`` twin through its ``main`` on a mini T-LESS
+    tree of the tools' scene, its renders on the card and on the CPU: the
+    same files, byte for byte, and an overlay drawn over each view."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "t-less_v2")
+        tless_tree(root, scene)
+        outs = {}
+        for device in ("card", "cpu"):
+            outs[device] = os.path.join(tmp, device)
+            with contextlib.redirect_stdout(io.StringIO()):
+                code = tools_tless.main(["--base-path", root, "--scenes", "1", "--im-step", "1", "--out",
+                                         outs[device], "--torch-device", str(dev) if device == "card" else "cpu"])
+            check(code == 0, f"check_poses_tless failed on {device}")
+        names = sorted(os.listdir(outs["card"]))
+        check(len(names) == 2 * len(scene) and names == sorted(os.listdir(outs["cpu"])),
+              f"check_poses_tless wrote {names}")
+        same = [open(os.path.join(outs["card"], n), "rb").read() == open(os.path.join(outs["cpu"], n), "rb").read()
+                for n in names]
+        check(all(same), f"check_poses_tless' PNGs on the card differ from the CPU's: {dict(zip(names, same))}")
+        png_size = {n: os.path.getsize(os.path.join(outs["card"], n)) for n in names}
+    drawn, models = [], {1: TB.make_models()["texbox"]}
+    for rgb, depth, gt in scene:
+        vis, ren = tools_tless.gt_overlay(rgb, [gt], models, TOOLS_K, device=dev)
+        drawn.append(int((vis != rgb).any(axis=-1).sum()))
+        check(np.array_equal(ren > 0, depth > 0), "check_poses_tless' render misses the view's own silhouette")
+    check(min(drawn) > 500, f"check_poses_tless drew no overlay: {drawn} pixels changed")
+    return {"files": names, "png_bytes": png_size, "card_equals_cpu_bytes": True, "pixels_drawn": drawn}
 
 
 def measurement_twins() -> dict:
@@ -2922,6 +3009,67 @@ def measurement_twins() -> dict:
     check(all(np.isfinite(v) and v > 0 for v in reports["bench_stage_breakdown"]["prefix_ms"].values()),
           "bench_stage_breakdown: a prefix has no time")
     return reports
+
+
+# -- bench.py's twin (python -m sixdpose_tpu_torch.bench) ------------------------
+
+BENCH_BUDGET_S = 90  # SIXDPOSE_BENCH_BUDGET_S of the twin's run: its optional stages stop once it is spent
+
+
+def phase_bench(dev, cid, det, det_cpu) -> int:
+    """``python -m sixdpose_tpu_torch.bench`` on the card, in a process of
+    its own with ``SIXDPOSE_BENCH_BUDGET_S`` at ``BENCH_BUDGET_S``: every
+    line it prints is JSON and the last holds every fps key above 0, the
+    card's name and power limit and the refine kernel's launches in its run
+    (its counter starts at 0 in that process); its last record is
+    re-emitted on the ``bench`` line.  Then the gate bench.py lacks on the
+    synthetic bank, at bench.py's threshold (no match is live on this bank)
+    and at ``LOW_THRESHOLD`` (every candidate is): the twin's one-frame
+    chain on the card against the port's CPU ``detect_frame_core`` on the
+    same frame, and one step of its batch chain at each B of its sweep on
+    bench.py's batch frames (``stack([rgb] * B) ^ arange(B)``) on the card
+    against the same step on the CPU, to the bit (the matches of every
+    frame and the perturbed frames).  The CPU runs the kernel's plain
+    version, so this holds the kernel against it at every shape the twin
+    launches it.  Returns the twin's launches."""
+    t0 = time.perf_counter()
+    env = dict(os.environ, SIXDPOSE_BENCH_BUDGET_S=str(BENCH_BUDGET_S))
+    proc = subprocess.run([sys.executable, "-m", "sixdpose_tpu_torch.bench"], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=BENCH_BUDGET_S + 300)
+    check(proc.returncode == 0, f"the bench twin exited {proc.returncode}: {proc.stderr[-3000:]}")
+    records = [json.loads(line) for line in proc.stdout.splitlines()]
+    last = records[-1]
+    check(all(last.get(k, 0) > 0 for k in TBN.RECORD_KEYS), f"the bench twin's record lacks a key: {last}")
+    check(bool(last["nvidia_smi"]) and last["local_refine_launches"] > 0,
+          f"the bench twin's record names no card or launched no refine kernel: {last}")
+    twin_s = time.perf_counter() - t0
+
+    _, _, rgb, dep = synthetic.bench_bank()
+    rgb_c, dep_c = torch.from_numpy(rgb), torch.from_numpy(dep.astype(np.int32))
+    bank, bank_cpu = det.device_bank(cid), det_cpu.device_bank(cid)
+    gate = {}
+    for thr in (TBN.THRESHOLD, LOW_THRESHOLD):
+        r_card, m_card = TBN.match_chain(1, rgb_c.to(dev), dep_c.to(dev), bank, threshold=thr)
+        m_cpu = detect_frame_core(rgb_c, dep_c, bank_cpu, BENCH_CFG, thr)
+        r_cpu = rgb_c ^ (m_cpu[3][0] % 2.0).to(torch.uint8)
+        same = all(torch.equal(a.cpu(), b) for a, b in zip(m_card, m_cpu)) and torch.equal(r_card.cpu(), r_cpu)
+        check(same, f"the bench twin's one-frame chain on the card differs from the port's CPU at {thr}")
+        live = {"B1": int((m_cpu[3] >= 0).sum())}
+        for b_n in TBN.BATCHES:
+            rgb_b = torch.from_numpy(np.stack([rgb] * b_n) ^ np.arange(b_n, dtype=np.uint8)[:, None, None, None])
+            dep_b = dep_c.expand(b_n, -1, -1).contiguous()
+            r_card, m_card = TBN.batch_chain(1, rgb_b.to(dev), dep_b.to(dev), bank, threshold=thr)
+            r_cpu, m_cpu = TBN.batch_chain(1, rgb_b, dep_b, bank_cpu, threshold=thr)
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(m_card, m_cpu)) and torch.equal(r_card.cpu(), r_cpu)
+            check(same, f"the bench twin's B={b_n} batch step on the card differs from the port's CPU at {thr}")
+            live[f"B{b_n}"] = int((m_cpu[3] >= 0).sum())
+        gate[str(thr)] = live
+    check(all(gate[str(LOW_THRESHOLD)].values()), f"no live match at {LOW_THRESHOLD}: {gate}")
+    emit("bench", t0, record=last, lines=len(records), budget_s=BENCH_BUDGET_S, twin_seconds=twin_s,
+         gate={"card_equals_cpu_bitwise": True, "batches": [1, *TBN.BATCHES], "live_matches_by_threshold": gate},
+         note="fps by the slope of eager frame chains on the wall clock (best of 3 a length), host dispatch "
+              "included; the timing phase's medians are CUDA events around single calls")
+    return int(last["local_refine_launches"])
 
 
 def parallel_only(dev, smi: str) -> int:
@@ -2979,7 +3127,7 @@ def main() -> int:
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
-    w, mc, mc_cpu, pipe, pipe_cpu, setup_s = multiclass_setup(dev)
+    w, mc, mc_cpu, pipe, setup_s = multiclass_setup(dev)
     mc_calls, mc_launches = phase_match_mc(dev, w, mc, mc_cpu, setup_s)
     w_ms, ms, ms_setup_s = multiscale_setup(dev)
     ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
@@ -2987,15 +3135,16 @@ def main() -> int:
     full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
     phase_match_golden(dev)
     launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
-    mc_refine_launches = phase_refine_mc(dev, w, pipe, pipe_cpu)
-    phase_refine_golden(dev)
-    phase_mc_golden(dev)
-    phase_ms_golden(dev)
     render_ms = phase_render(dev)
     with tempfile.TemporaryDirectory() as tmp:
         bank_path = os.path.join(tmp, "synth_bank.npz")
         train_s, train_per_class, restored = phase_train_synth(dev, bank_path)
+        refine_mc = phase_refine_mc(dev, w, pipe)
+        phase_refine_golden(dev)
+        phase_mc_golden(dev)
+        phase_ms_golden(dev)
         golden_launches = phase_synth_golden(dev)
+        mc_refine_launches = finish_refine_mc(refine_mc)
         synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
     lchf_launches, _ = phase_lchf(dev)
     check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
@@ -3004,6 +3153,7 @@ def main() -> int:
     emit("seg_golden", t0, **phase_seg_golden(dev))
     parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
     tools = phase_tools(dev)
+    bench_launches = phase_bench(dev, cid, det, det_cpu)
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -3022,9 +3172,9 @@ def main() -> int:
                                                     multiclass, multiscale, synth)
     bank = det.device_bank(cid)
     rgb, dep = frame_tensors(frames, depths, dev)
-    run = refine_runner(cid, det, refine_stage, dev)
+    run = TBN.refine_runner(dep, bank, refine_stage, LOW_THRESHOLD)
     phase_profile("profile", lambda: detect_frame_core(rgb, dep, bank, BENCH_CFG, 75.0))
-    phase_profile("profile_refine", lambda: run(rgb, dep, LOW_THRESHOLD))
+    phase_profile("profile_refine", lambda: run(rgb))
     rgb_mc, dep_mc = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
     phase_profile("profile_mc", lambda: pipe(rgb_mc, dep_mc, LOW_THRESHOLD))
     rgb_ms, dep_ms = torch.from_numpy(w_ms["rgb"]).to(dev), torch.from_numpy(w_ms["depth"].astype(np.int32)).to(dev)
@@ -3034,7 +3184,7 @@ def main() -> int:
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
                 "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
                 "synth": synth_launches, "lchf": lchf_launches, "seg": seg_launches["local_refine"],
-                "parallel": parallel["launches"], "tools": tools["launches"]}
+                "parallel": parallel["launches"], "tools": tools["launches"], "bench": bench_launches}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 

@@ -45,22 +45,25 @@ OBJECT_SIZE = 112
 BENCH_K = np.array([[572.4114, 0, 325.2611], [0, 573.57043, 242.04899], [0, 0, 1]], np.float32)
 
 
-def bench_bank(num_templates: int = 89, seed: int = 0):
-    """(class_id, templates, rgb (480, 640, 3) uint8, depth (480, 640)
-    uint16) of bench.py's synthetic workload."""
+def bench_bank(num_templates: int = 89, seed: int = 0, sizes: Tuple[int, int] = (80, 40), features: int = 254,
+               hw: Tuple[int, int] = VGA):
+    """(class_id, templates, rgb (H, W, 3) uint8, depth (H, W) uint16) of
+    bench.py's synthetic workload.  The defaults are bench.py's; ``sizes``
+    (the templates' side at levels 0 and 1), ``features`` (level 0's count;
+    level 1 has half) and ``hw`` cut it by the same recipe."""
     rng = np.random.default_rng(seed)
     templates: List[List[TemplateLevel]] = []
     for _ in range(num_templates):
         levels = []
-        for l, size in ((0, 80), (1, 40)):
-            f = 254 // (l + 1)
+        for l, size in enumerate(sizes):
+            f = features // (l + 1)
             feats = np.stack(
                 [rng.integers(0, size, f), rng.integers(0, size, f), rng.integers(0, 16, f)], 1
             )
             levels.append(TemplateLevel(features=feats, width=size, height=size, pyramid_level=l))
         templates.append(levels)
-    rgb = rng.integers(0, 255, (480, 640, 3), np.uint8)
-    dep = (900 + 60 * rng.standard_normal((480, 640))).astype(np.uint16)
+    rgb = rng.integers(0, 255, hw + (3,), np.uint8)
+    dep = (900 + 60 * rng.standard_normal(hw)).astype(np.uint16)
     return "synthetic", templates, rgb, dep
 
 

@@ -24,5 +24,14 @@ reads and writes the dataset's files, so a machine without ``yaml`` and
   differences, on the bench bank;
 - ``bench_local_refine`` (twin of ``bench_pallas_refine``): the refine
   kernel against its plain version, exactly, and its time beside the plain
-  version's, the grouped convolution's and the bound.
+  version's, the grouped convolution's and the bound;
+- ``check_poses_tless``: ``gt_overlay`` renders a T-LESS image's
+  ground-truth poses over it, ``depth_diff`` maps its captured depth
+  against the render (``--torch-device`` picks the card or the CPU, since
+  ``--device`` is the T-LESS sensor, as in the JAX tool);
+- ``tless_download``: the T-LESS archive list as a manifest, printed, or
+  fetched and unpacked with checksums (standard library only).
+
+The JAX package's ``bench.py`` has its twin one level up,
+``python -m sixdpose_tpu_torch.bench``.
 """

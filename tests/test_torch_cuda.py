@@ -879,3 +879,43 @@ def test_local_refine_twin_is_equivalent_on_the_card(cuda):
     assert r["equivalent"] and r["grouped_conv_equal"]
     assert LR.similarity_local_sparse_cuda.launches > before
     assert 0 < r["bound_ms"] < r["kernel_ms"]
+
+
+def test_bench_twin_chain_on_the_card_equals_the_cpu(cuda, capsys):
+    """bench.py's twin: its one-frame match chain and a B = 2 batch chain
+    on the card equal the CPU's to the bit on the full bench workload, and
+    ``main`` on a cut workload (4 templates of 32 x 32, 120 x 160, short
+    chains) streams records that parse, the last with every fps key above 0,
+    the card's ``nvidia-smi`` line and the kernel's launches."""
+    import json
+
+    from sixdpose_tpu_torch import bench
+
+    cid, templates, rgb, dep = synthetic.bench_bank()
+    banks = {}
+    for device in (cuda, "cpu"):
+        det = Detector(bench.CFG, device=device)
+        for tl in templates:
+            det.bank.add_template_levels(cid, tl)
+        banks[str(device)] = det.device_bank(cid)
+    rgb_c, dep_c = torch.from_numpy(rgb), torch.from_numpy(dep.astype(np.int32))
+    r_gpu, m_gpu = bench.match_chain(1, rgb_c.to(cuda), dep_c.to(cuda), banks[str(cuda)])
+    r_cpu, m_cpu = bench.match_chain(1, rgb_c, dep_c, banks["cpu"])
+    assert torch.equal(r_gpu.cpu(), r_cpu)
+    for a, b in zip(m_gpu, m_cpu):
+        assert torch.equal(a.cpu(), b)
+    rgb_b = torch.stack([rgb_c, rgb_c ^ 1])
+    dep_b = dep_c.expand(2, -1, -1).contiguous()
+    r_gpu, m_gpu = bench.batch_chain(2, rgb_b.to(cuda), dep_b.to(cuda), banks[str(cuda)])
+    r_cpu, m_cpu = bench.batch_chain(2, rgb_b, dep_b, banks["cpu"])
+    assert torch.equal(r_gpu.cpu(), r_cpu)
+    for a, b in zip(m_gpu, m_cpu):
+        assert torch.equal(a.cpu(), b)
+
+    capsys.readouterr()
+    cut = synthetic.bench_bank(num_templates=4, sizes=(32, 16), features=64, hw=(120, 160))
+    assert bench.main(workload=cut, match_chains=(1, 3), refine_chains=(1, 2)) == 0
+    lines = [json.loads(line) for line in capsys.readouterr().out.splitlines()]
+    last = lines[-1]
+    assert len(lines) == 5 and all(last[k] > 0 for k in bench.RECORD_KEYS), last
+    assert last["nvidia_smi"] and last["local_refine_launches"] > 0

@@ -67,7 +67,8 @@ def test_port_imports_without_jax():
                  "parallel", "parallel.mesh", "parallel.distributed", "parallel.sharded_match", "parallel.tiled_match",
                  "parallel.rank_jobs", "parallel.fused", "tools", "tools.train_templates", "tools.detect_sixd",
                  "tools.calc_gt_stats", "tools.eval_calc_errors", "tools.eval_loc", "tools.bench_multiscale_multiclass",
-                 "tools.bench_scaling", "tools.vis_poses"):
+                 "tools.bench_scaling", "tools.vis_poses", "tools.bench_stage_breakdown", "tools.bench_local_refine",
+                 "tools.check_poses_tless", "tools.tless_download", "bench"):
         assert f"sixdpose_tpu_torch.{name}" in out.stdout.split(), name
 
 

@@ -56,7 +56,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 K = np.array([[240.0, 0, 120.0], [0, 240.0, 90.0], [0, 0, 1.0]])
 IMW, IMH = 240, 180
 TWINS = ("train_templates", "detect_sixd", "calc_gt_stats", "eval_calc_errors", "eval_loc",
-         "bench_multiscale_multiclass", "bench_scaling", "vis_poses", "bench_stage_breakdown", "bench_local_refine")
+         "bench_multiscale_multiclass", "bench_scaling", "vis_poses", "bench_stage_breakdown", "bench_local_refine",
+         "check_poses_tless", "tless_download")
 JAX_TOOL = {"bench_local_refine": "bench_pallas_refine"}  # the port's twin by the JAX tool it answers
 
 

@@ -6,7 +6,7 @@ process, the pairs alternating which side runs first.
     python3 tools/torch_port_ab.py PARENT_DIR CHANGE_DIR [--pairs 10]
 
 Each directory holds a checkout's ``chip_smoke.py`` and
-``sixdpose_tpu_torch/`` (for instance ``git archive HEAD chip_smoke.py
+``sixdpose_tpu_torch/`` with its bench twin ``bench.py`` (for instance ``git archive HEAD chip_smoke.py
 sixdpose_tpu_torch`` unpacked into a git-ignored directory); a sample
 imports that checkout's own package and builds its kernels.  Prints the
 ``nvidia-smi`` name and power limit, then one JSON line per sample: the
@@ -39,13 +39,13 @@ def sample(checkout: str) -> dict:
     dev = torch.device("cuda:0")
     cid, det, _, frames, depths = CS.bench_detectors(dev)
     stage = CS.synthetic.bench_refine_bank(det.device_bank(cid).whs[0].cpu().numpy())
-    run = CS.refine_runner(cid, det, stage, dev)
     rgb, dep = CS.frame_tensors(frames, depths, dev)
     bank = det.device_bank(cid)
+    run = {t: CS.TBN.refine_runner(dep, bank, stage, t) for t in (75.0, 30.0)}
     return {
         "match_b1": CS.cuda_ms(lambda: CS.detect_frame_core(rgb, dep, bank, CS.BENCH_CFG, 75.0), reps=20),
-        "fused_75": CS.cuda_ms(lambda: run(rgb, dep, 75.0), reps=20),
-        "fused_30": CS.cuda_ms(lambda: run(rgb, dep, 30.0), reps=20),
+        "fused_75": CS.cuda_ms(lambda: run[75.0](rgb), reps=20),
+        "fused_30": CS.cuda_ms(lambda: run[30.0](rgb), reps=20),
     }
 
 
