@@ -53,7 +53,10 @@ Drives the port's main paths, and checks every result:
   the T-LESS ``check_poses_tless`` twin on a mini T-LESS tree of the same
   views, and the measurement twins at the JAX tools' defaults;
 - bench.py's twin, ``python -m sixdpose_tpu_torch.bench``, at bench.py's
-  workload (the bench workload above), as a user runs it.
+  workload (the bench workload above), as a user runs it;
+- the dense-kernel route at the bench workload's full width and the twin
+  of the JAX package's entry program (``sixdpose_tpu_torch.entry``, VGA, 16
+  templates).
 
 One JSON line per phase; a failing phase raises, so the script exits
 non-zero:
@@ -169,7 +172,10 @@ non-zero:
    each rank's template shard restored from the bank's checkpoint
    (``restore_local_levels``): every rank's shard equal to the ``levels``
    route's and its outputs equal to that job's, to the bit, one refine
-   launch a level, its restore seconds and bytes read; in a second spawn, the fused
+   launch a level, its restore seconds and bytes read; the dense-kernel
+   route (the bench bank without feature lists) at data 2 x template 2 and
+   tile 2, equal to four CPU ranks and to the same mesh computed in one
+   process on the card, every slot, with no refine launch; in a second spawn, the fused
    multi-class frame (``fused_mc``, the multi-class workload) and the
    multi-scale multi-class frame (``fused_ms``, the multi-scale workload)
    at data 4 on four frames, each rank's frames equal to the
@@ -196,6 +202,16 @@ non-zero:
    thresholds 75 and 30: the twin's one-frame chain and one step of its
    batch chain at B = 2, 4 and 8 (bench.py's batch frames), on the card
    against the port's CPU on the same frames, to the bit;
+19c. dense_route: the dense-kernel route (a bank without feature lists,
+   refined by the grouped conv of ``similarity_local``, as the JAX package
+   refines such a bank), with the refine kernel's launch count set to 0
+   just before and read just after (it must stay 0): ``entry()``, the twin
+   of ``__graft_entry__.entry()``, on the card equal to the CPU and to the
+   JAX golden of ``tools/torch_port_entry_golden.py``; the bench workload
+   without its lists at 75 and 30, B = 1 and 4, equal to the CPU in every
+   slot, to the bit, and beside it whether its live slots equal the sparse
+   route's; ms per frame of both routes, ms per grouped conv a level, and
+   peak device memory per frame;
 20. timing: CUDA-event medians of ``detect_frame_core`` per frame at B=1 and
    B=4, and of ``detect_refine_core`` per frame at B=1 (thresholds 75 and
    30) split by stage with CUDA events between stages, beside per-frame
@@ -270,6 +286,8 @@ from sixdpose_tpu_torch import bench as TBN
 from sixdpose_tpu_torch import benchmark as TB
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
+from sixdpose_tpu_torch.convert import bank_levels_from_numpy, without_features
+from sixdpose_tpu_torch.entry import entry as port_entry
 from sixdpose_tpu_torch.eval import pose_error
 from sixdpose_tpu_torch.eval.misc import model_diameter
 from sixdpose_tpu_torch.geometry import render as GR
@@ -322,6 +340,7 @@ from sixdpose_tpu_torch.ops.similarity import (
     build_template_kernels,
     similarity_dense,
     similarity_dense_pre_s2d,
+    similarity_local,
     similarity_local_sparse,
     similarity_multiscale_matmul,
 )
@@ -337,7 +356,9 @@ from sixdpose_tpu_torch.seg.dasp import floyd_steinberg_seeds as seg_seeds
 from sixdpose_tpu_torch.seg.dasp import pixel_stage as seg_pixel_stage
 from sixdpose_tpu_torch.parallel.distributed import backend_for, run_ranks
 from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
-from sixdpose_tpu_torch.parallel.sharded_match import multiscale_class_arrays, shard_bank
+from sixdpose_tpu_torch.parallel.sharded_match import merge_topk, multiscale_class_arrays, shard_bank
+from sixdpose_tpu_torch.parallel.tiled_match import required_halo
+from sixdpose_tpu_torch.ops.topk_nms import nms_boxes
 from sixdpose_tpu_torch.serving import PoseEstimationService
 from sixdpose_tpu_torch.tools import detect_sixd as tools_detect
 from sixdpose_tpu_torch.tools import eval_calc_errors as tools_errors
@@ -1123,7 +1144,7 @@ def time_refine_library(c, kh: int, kw: int, reps: int = 3, inner: int = 1) -> f
     candidates."""
     scale = c["scale"][:, None] if c["scale"] is not None else 1.0
     kernels = build_kernels_scaled(c["feats"], c["valid"], scale, kh, kw, c["maps"].shape[0])
-    lhs, rhs = _local_conv_operands(c["maps"], kernels, c["origins"], c["t"], c["window"])
+    lhs, rhs = _local_conv_operands(c["maps"][None], kernels[None], c["origins"][None], c["t"], c["window"])
     conv = lambda: torch.nn.functional.conv2d(lhs, rhs, groups=rhs.shape[0])  # noqa: E731
     live = c["active"]
     check(torch.equal(torch.round(conv())[0][live], _run(LR.similarity_local_sparse_cuda, c)[0][live]),
@@ -2641,10 +2662,13 @@ def fused_reference(job, pipe, ms_card) -> list:
 def parallel_jobs(cid, det, frames, depths, w_ms, reps: int, checkpoint: str) -> list:
     """The jobs of the four ranks: data 2 x template 2 on the bench batch,
     tile 2 on its first frame, template 2 multi-scale on the first class of
-    the multi-scale workload (337 templates), and data 2 x template 2 on the
+    the multi-scale workload (337 templates), data 2 x template 2 on the
     bench batch again with each rank's shard restored from the bank's
-    ``checkpoint`` (the mesh shape of the first job), all at LOW_THRESHOLD."""
+    ``checkpoint`` (the mesh shape of the first job), and the dense-kernel
+    route (the bench bank without feature lists) at data 2 x template 2 and
+    tile 2 as the first two jobs, all at LOW_THRESHOLD."""
     levels = det.bank.finalized(cid)
+    dense = without_features(levels)
     arrays = multiscale_class_arrays(w_ms["templates"][0], w_ms["train_depth"], w_ms["cfg"].t_at_level[-1])
     common = dict(threshold=LOW_THRESHOLD, reps=reps)
     return [
@@ -2654,7 +2678,57 @@ def parallel_jobs(cid, det, frames, depths, w_ms, reps: int, checkpoint: str) ->
              train_depth=w_ms["train_depth"], num_scales=w_ms["num_scales"], **common),
         dict(kind="sharded", mesh=(2, 2, 1), checkpoint=checkpoint, class_id=cid, rgb=frames, depth=depths,
              cfg=BENCH_CFG, **common),
+        dict(kind="sharded", mesh=(2, 2, 1), levels=dense, rgb=frames, depth=depths, cfg=BENCH_CFG, **common),
+        dict(kind="tiled", mesh=(1, 1, 2), levels=dense, rgb=frames[0], depth=depths[0], cfg=BENCH_CFG, **common),
     ]
+
+
+def dense_job(job) -> bool:
+    """A job on the dense-kernel route: its bank has no feature lists."""
+    return "levels" in job and job["levels"][0].feats is None
+
+
+def mesh_in_one_process(job, dev) -> list:
+    """A ``sharded`` or ``tiled`` job computed in this one process on the
+    card, step for step as its ranks compute it but with no collective: per
+    template shard (``shard_bank``) the frames' candidates, merged by
+    ``merge_topk`` and then box NMS, as ``detect_shard`` merges the gathered
+    shards; or per row slab its window of ``required_halo`` rows each side
+    cut from the whole frame (zero rows past the frame), the candidates whose
+    rows the slab owns and ``merge_topk``, as ``tiled_detect`` merges them.
+    Returns the job's outputs as numpy, in the full batch's layout."""
+    cfg, thr = job["cfg"], job["threshold"]
+    rgb = torch.from_numpy(np.ascontiguousarray(job["rgb"])).to(dev)
+    dep = torch.from_numpy(job["depth"].astype(np.int32)).to(dev)
+    if job["kind"] == "sharded":
+        n_t = job["mesh"][1]
+        parts = []
+        for s in range(n_t):
+            bank = shard_bank(job["levels"], n_t, s, dev)
+            tid, x, y, score, _ = detect_frame_core(rgb, dep, bank, cfg, thr, apply_nms=False)
+            wh = bank.whs[0][tid.long()]
+            fields = [tid + s * bank.kernels[0].shape[0], x, y, score, wh[..., 0], wh[..., 1]]
+            parts.append(torch.stack([f.to(torch.float64) for f in fields], dim=-2))
+        merged = merge_topk(torch.stack(parts, dim=1), cfg.top_k)  # (B, 6, K)
+        mtid, mx, my, mw, mh = (merged[:, i].to(torch.int32) for i in (0, 1, 2, 4, 5))
+        mscore = merged[:, 3].to(torch.float32)
+        keep = nms_boxes(torch.stack([mx, my, mw, mh], dim=-1).to(torch.float32), mscore, cfg.nms_iou)
+        return [a.cpu().numpy() for a in (mtid, mx, my, mscore, keep)]
+    n = job["mesh"][2]
+    slab = rgb.shape[0] // n
+    bank = bank_levels_from_numpy(job["levels"], dev)
+    halo = min(required_halo(cfg, bank.kernels[0].shape[2]), slab * (n - 1))
+    rgb_p = torch.nn.functional.pad(rgb, (0, 0, 0, 0, halo, halo))
+    dep_p = torch.nn.functional.pad(dep, (0, 0, halo, halo))
+    parts = []
+    for i in range(n):
+        rows = slice(i * slab, (i + 1) * slab + 2 * halo)
+        tid, x, y, score, _ = detect_frame_core(rgb_p[rows], dep_p[rows], bank, cfg, thr, apply_nms=False)
+        own = (y >= halo) & (y < halo + slab) & (score >= 0)
+        score = torch.where(own, score, torch.full_like(score, -1.0))
+        parts.append(torch.stack([f.to(torch.float64) for f in (tid, x, y - halo + i * slab, score)]))
+    merged = merge_topk(torch.stack(parts), cfg.top_k)
+    return [merged[i].to(torch.int32).cpu().numpy() for i in range(3)] + [merged[3].to(torch.float32).cpu().numpy()]
 
 
 def checkpoint_checks(job, card: list, cpu: list, i: int, levels) -> dict:
@@ -2701,7 +2775,10 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
       templates) and ``sharded_detect_refine`` at data 2 x template 2
       (B = 4, 128 candidates a frame through ICP), each equal to the same
       mesh in four CPU ranks: the same ranks answer on both sides, and
-      exactly the mesh's ranks answer;
+      exactly the mesh's ranks answer; in the same spawn the dense-kernel
+      route (the bench bank without feature lists) at data 2 x template 2
+      and tile 2, each also equal to the same mesh computed in one process
+      on the card (``mesh_in_one_process``) in every slot;
     - in a second spawn of the four ranks, beside ``detect_icp``,
       ``fused_multiclass_over_data`` and ``multiscale_multiclass_over_data``
       at data 4 (B = 4, one frame a rank), every rank's full batch equal
@@ -2711,7 +2788,7 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
 
     Each rank sets its local-refine launch count to 0 just before its job's
     first step and reads it just after; every card rank of every mesh must
-    have launched the kernel.  Rank 0 times each step and its merge
+    have launched the kernel, and none of a dense-kernel route's mesh.  Rank 0 times each step and its merge
     collective alone with CUDA events, then profiles ``PARALLEL_PROFILE``
     steps for its own device time (the rest of the step is the rank's host
     work and waits); each card rank reports its peak of allocated device
@@ -2757,8 +2834,13 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
         what = f"{job['kind']} mesh {job['mesh']}"
         ranks = [r for r in range(4) if card[r][i] is not None]
         check(len(ranks) == int(np.prod(job["mesh"])), f"{what}: {len(ranks)} card ranks answered")
+        dense = dense_job(job)
         for r in ranks:
-            check(card[r][i]["launches"] > 0, f"{what}: rank {r} launched no refine kernel")
+            if dense:
+                check(card[r][i]["launches"] == 0, f"{what} without feature lists: rank {r} launched the refine "
+                                                   f"kernel {card[r][i]['launches']} times")
+            else:
+                check(card[r][i]["launches"] > 0, f"{what}: rank {r} launched no refine kernel")
         if job["kind"] in FUSED_KINDS:
             s0 = time.perf_counter()
             want = fused_reference(job, pipe, ms_card)
@@ -2788,6 +2870,17 @@ def phase_parallel(dev, cid, det, frames, depths, w_ms, w_mc, pipe, ms_card) -> 
             out = card[0][i]["outputs"]
             equals = "the same mesh in CPU ranks (gloo)"
             extra = {"live_candidates": int((out[3] >= 0).sum())}
+            if dense:
+                s0 = time.perf_counter()
+                one = mesh_in_one_process(job, dev)
+                check(all(np.array_equal(a, b) for a, b in zip(out, one)),
+                      f"{what} without feature lists differs from the same mesh computed in one process")
+                sparse = next(k for k, j in enumerate(jobs) if j["kind"] == job["kind"] and j["mesh"] == job["mesh"])
+                with_keep = lambda o: list(o) if len(o) == 5 else list(o) + [o[3] >= 0]  # noqa: E731 (tiled: no keep)
+                same = same_live(with_keep(out), with_keep(card[0][sparse]["outputs"]))
+                equals = ("the same mesh in CPU ranks (gloo) and in one process on the card, every slot (bitwise); "
+                          "route: dense kernels, grouped-conv refinement")
+                extra.update(route="dense", equals_sparse_route_live=bool(same), one_process_s=time.perf_counter() - s0)
             if job["kind"] == "detect_icp":
                 extra.update(icp_candidates_per_frame=int(out[5].shape[1]), fitness_mean=float(out[6].mean()))
             if "checkpoint" in job:
@@ -3072,6 +3165,140 @@ def phase_bench(dev, cid, det, det_cpu) -> int:
     return int(last["local_refine_launches"])
 
 
+# -- the dense-kernel route (a bank without feature lists) ----------------------
+
+DENSE_THRESHOLDS = (75.0, LOW_THRESHOLD)
+DENSE_BATCHES = (1, 4)
+DENSE_REPS = 10
+
+
+@contextmanager
+def recording_conv_calls(calls: list):
+    """Record the inputs of every grouped-conv refinement
+    (``similarity_local``) the main path makes, at the detector's dispatch."""
+    original = D.similarity_local
+
+    def recorder(maps, kernels, origins, t, window=16):
+        calls.append(dict(maps=maps, kernels=kernels, origins=origins, t=t, window=window))
+        return original(maps, kernels, origins, t, window)
+
+    D.similarity_local = recorder
+    try:
+        yield
+    finally:
+        D.similarity_local = original
+
+
+def peak_mib(fn) -> float:
+    """Peak of allocated device memory during ``fn`` above what was
+    allocated before it, MiB."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20
+
+
+def phase_dense_route(dev, cid, det, det_cpu, frames, depths) -> int:
+    """The dense-kernel route: a bank passed without feature lists, scored by
+    the dense conv and refined by the grouped conv of ``similarity_local``
+    (the JAX package's route for such a bank, and its entry program's).  With
+    the refine kernel's launch count set to 0 just before: ``entry()`` on
+    the card, and the bench workload's bank without its lists
+    (``DeviceBank.without_features``) through ``detect_frame_core`` at 75
+    and LOW_THRESHOLD, one frame and the batch of 4; the count is read just
+    after and must be 0, and every grouped-conv call is recorded.  Then
+    ``entry()`` equal to the port's CPU run and to the JAX golden of
+    ``tools/torch_port_entry_golden.py``, and each bench point equal to the
+    port's CPU run in every slot, to the bit; beside it, whether its live
+    slots (and keep) equal the sparse route's on the same bank with its
+    lists (reported, not gated: the JAX package holds the route to itself).
+    CUDA-event medians: ms per frame of both routes at B = 1 and 4, ms per
+    grouped-conv call per level (``similarity_local`` whole, and the
+    ``F.conv2d`` alone on its operands) at each recorded call at
+    LOW_THRESHOLD, and the peak device memory per frame of both routes.
+    Returns the launches (0)."""
+    t0 = time.perf_counter()
+    sparse = det.device_bank(cid)
+    bank, bank_cpu = sparse.without_features(), det_cpu.device_bank(cid).without_features()
+    rgb_t, dep_t = torch.from_numpy(frames).to(dev), torch.from_numpy(depths.astype(np.int32)).to(dev)
+    inputs = {1: (rgb_t[0], dep_t[0]), 4: (rgb_t, dep_t)}
+    points = [(thr, b) for thr in DENSE_THRESHOLDS for b in DENSE_BATCHES]
+    calls: list = []
+    LR.similarity_local_sparse_cuda.launches = 0
+    with recording_conv_calls(calls):
+        fn, args = port_entry(device=dev)
+        card_entry = fn(*args)
+        card = {p: detect_frame_core(*inputs[p[1]], bank, BENCH_CFG, p[0]) for p in points}
+        torch.cuda.synchronize()
+    launches = LR.similarity_local_sparse_cuda.launches
+    check(launches == 0, f"the dense-kernel route launched the refine kernel {launches} times")
+    levels = len(BENCH_CFG.t_at_level) - 1
+    check(len(calls) == levels * (1 + len(points)), f"{len(calls)} grouped-conv calls recorded")
+
+    g = np.load(os.path.join(TESTDATA, "entry_golden.npz"))
+    fn_c, args_c = port_entry(device="cpu")
+    cpu_entry = fn_c(*args_c)
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(card_entry, cpu_entry)),
+          "entry() on the card differs from the CPU")
+    check(all(np.array_equal(a.cpu().numpy(), g[n]) for a, n in zip(card_entry, ("tid", "x", "y", "score", "keep"))),
+          "entry() on the card differs from the JAX golden")
+    s0 = time.perf_counter()
+    live, sparse_eq = {}, {}
+    for p in points:
+        thr, b = p
+        rgb_c, dep_c = (a.cpu() for a in inputs[b])
+        want = detect_frame_core(rgb_c, dep_c, bank_cpu, BENCH_CFG, thr)
+        check(all(torch.equal(a.cpu(), w) for a, w in zip(card[p], want)),
+              f"the dense-kernel route on the card differs from the CPU at {thr}, B={b}")
+        sp = detect_frame_core(*inputs[b], sparse, BENCH_CFG, thr)
+        key = f"{thr}_B{b}"
+        frames_of = (lambda o, f: [a[f] for a in o]) if b > 1 else (lambda o, f: o)  # noqa: E731
+        sparse_eq[key] = all(same_live(frames_of(card[p], f), frames_of(sp, f)) for f in range(b))
+        live[key] = int((card[p][3] >= 0).sum())
+    cpu_s = time.perf_counter() - s0
+    check(live[f"{LOW_THRESHOLD}_B1"] > 0, f"no live match at {LOW_THRESHOLD}: {live}")
+
+    ms = {}
+    for route, bk in (("dense", bank), ("sparse", sparse)):
+        for b in DENSE_BATCHES:
+            ms[f"{route}_B{b}"] = cuda_ms(lambda: detect_frame_core(*inputs[b], bk, BENCH_CFG, LOW_THRESHOLD),
+                                          reps=DENSE_REPS) / b
+    conv = []
+    # The last points' calls are LOW_THRESHOLD's, B = 1 then 4, each from the
+    # top refine level down.
+    for j, c in enumerate(calls[-levels * len(DENSE_BATCHES):]):
+        single = c["maps"].dim() == 3
+        lead = (lambda a: a[None]) if single else (lambda a: a)  # noqa: E731
+        lhs, rhs = _local_conv_operands(lead(c["maps"]), lead(c["kernels"]), lead(c["origins"]), c["t"], c["window"])
+        conv.append({
+            "level": levels - 1 - j % levels, "frames": 1 if single else int(c["maps"].shape[0]),
+            "candidates": int(rhs.shape[0]), "t": c["t"], "kernel_hw": list(rhs.shape[-2:]),
+            "channels_per_group": int(rhs.shape[1]),
+            "similarity_local_ms": cuda_ms(lambda: similarity_local(c["maps"], c["kernels"], c["origins"], c["t"]),
+                                           reps=DENSE_REPS),
+            "conv2d_only_ms": cuda_ms(lambda: torch.nn.functional.conv2d(lhs, rhs, groups=rhs.shape[0]),
+                                      reps=DENSE_REPS),
+        })
+        del lhs, rhs
+    peak = {f"{route}_B{b}": peak_mib(lambda: detect_frame_core(*inputs[b], bk, BENCH_CFG, LOW_THRESHOLD)) / b
+            for route, bk in (("dense", bank), ("sparse", sparse)) for b in DENSE_BATCHES}
+    torch.cuda.empty_cache()
+    emit("dense_route", t0, nvidia_smi=nvidia_smi(), launches=launches, grouped_conv_calls=len(calls),
+         cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
+         entry={"card_equals_cpu": True, "card_equals_jax_golden": True,
+                "live": int((card_entry[3] >= 0).sum())},
+         bench={"templates": int(bank.kernels[0].shape[0]), "hw": list(frames.shape[1:3]), "top_k": BENCH_CFG.top_k,
+                "card_equals_cpu_bitwise": True, "live_by_point": live,
+                "equals_sparse_route_live_and_keep": sparse_eq, "cpu_reference_s": cpu_s},
+         ms_per_frame_at_30=ms, grouped_conv_by_call_at_30=conv, peak_mib_per_frame_at_30=peak,
+         note="ms: CUDA-event medians of whole eager calls over DENSE_REPS; the sparse route is the same bank with "
+              "its lists (the local-refine kernel); peak: max_memory_allocated above the allocation before the call, "
+              "per frame")
+    return launches
+
+
 def parallel_only(dev, smi: str) -> int:
     """``python3 chip_smoke.py parallel``: only the ``parallel`` phase and,
     with two or more cards, ``tools.bench_scaling`` over them on the bench
@@ -3154,6 +3381,7 @@ def main() -> int:
     parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
     tools = phase_tools(dev)
     bench_launches = phase_bench(dev, cid, det, det_cpu)
+    dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -3184,7 +3412,8 @@ def main() -> int:
     by_phase = {"match_vga": match_launches, "refine_vga": launches, "match_mc": mc_launches,
                 "refine_mc": mc_refine_launches, "match_ms": ms_launches, "synth_golden": golden_launches,
                 "synth": synth_launches, "lchf": lchf_launches, "seg": seg_launches["local_refine"],
-                "parallel": parallel["launches"], "tools": tools["launches"], "bench": bench_launches}
+                "parallel": parallel["launches"], "tools": tools["launches"], "bench": bench_launches,
+                "dense_route": dense_launches}
     mc_kernel = multiclass["refine_kernel_K1152"]
     ms_kernel = multiscale["refine_kernel_K1920_scaled"]
 

@@ -46,15 +46,36 @@ class DeviceBank:
     kernels: (N, C, KH, KW) int8 one-hot conv kernels.
     nfeats:  (N,) int32 feature counts.
     whs:     (N, 2) int32 template (width, height).
-    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists.
-    valids:  (N, F) bool.
+    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists, or None.
+    valids:  (N, F) bool, or None.
+
+    A bank without feature lists (``feats`` and ``valids`` None), as the
+    JAX package's ``Detector.device_bank`` triple is, takes the dense-kernel
+    route: the coarse level by the dense conv and the refinement by the
+    grouped conv of ``ops.similarity.similarity_local``.
     """
 
     kernels: Tuple[torch.Tensor, ...]
     nfeats: Tuple[torch.Tensor, ...]
     whs: Tuple[torch.Tensor, ...]
-    feats: Tuple[torch.Tensor, ...]
-    valids: Tuple[torch.Tensor, ...]
+    feats: Optional[Tuple[torch.Tensor, ...]] = None
+    valids: Optional[Tuple[torch.Tensor, ...]] = None
+
+    @classmethod
+    def from_kernels(cls, kernels: Sequence, nfeats: Sequence, whs: Sequence, device) -> "DeviceBank":
+        """A bank without feature lists on ``device`` from the per-level
+        (kernels, nfeats, whs) numpy arrays of the JAX package's
+        ``Detector.device_bank``."""
+        return cls(
+            kernels=tuple(_to(k, np.int8, device) for k in kernels),
+            nfeats=tuple(_to(n, np.int32, device) for n in nfeats),
+            whs=tuple(_to(w, np.int32, device) for w in whs),
+        )
+
+    def without_features(self) -> "DeviceBank":
+        """The same bank with its feature lists dropped: the dense-kernel
+        route's bank."""
+        return dataclasses.replace(self, feats=None, valids=None)
 
 
 def _to(a, dtype: np.dtype, device) -> torch.Tensor:
@@ -64,14 +85,23 @@ def _to(a, dtype: np.dtype, device) -> torch.Tensor:
 def bank_levels_from_numpy(levels: Sequence, device) -> DeviceBank:
     """Device bank from per-level objects with numpy fields ``kernels``,
     ``nfeat``, ``wh``, ``feats`` and ``valid`` (a ``BankLevel`` of either
-    package)."""
-    return DeviceBank(
-        kernels=tuple(_to(b.kernels, np.int8, device) for b in levels),
-        nfeats=tuple(_to(b.nfeat, np.int32, device) for b in levels),
-        whs=tuple(_to(b.wh, np.int32, device) for b in levels),
+    package).  Levels whose ``feats`` are None give a bank without feature
+    lists."""
+    bank = DeviceBank.from_kernels([b.kernels for b in levels], [b.nfeat for b in levels], [b.wh for b in levels],
+                                   device)
+    if levels[0].feats is None:
+        return bank
+    return dataclasses.replace(
+        bank,
         feats=tuple(_to(b.feats, np.int32, device) for b in levels),
         valids=tuple(_to(b.valid, np.bool_, device) for b in levels),
     )
+
+
+def without_features(levels: Sequence) -> list:
+    """A class's per-level numpy bank with its feature lists dropped: the
+    dense-kernel route's bank."""
+    return [BankLevel(kernels=b.kernels, nfeat=b.nfeat, wh=b.wh, feats=None, valid=None) for b in levels]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,14 +163,19 @@ class MultiClassBank:
 
 def multiclass_bank_from_numpy(per_class: Sequence[Sequence], device) -> MultiClassBank:
     """The superbank of the classes' per-level banks (``BankLevel``s of
-    either package, one list per class in class order), on ``device``."""
+    either package, one list per class in class order), on ``device``;
+    without feature lists when the classes' levels have none."""
     counts = [levels[0].kernels.shape[0] for levels in per_class]
     merged = []
     for l in range(len(per_class[0])):
         lv = [levels[l] for levels in per_class]
         khm = max(b.kernels.shape[2] for b in lv)
         kwm = max(b.kernels.shape[3] for b in lv)
-        fm = max(b.feats.shape[1] for b in lv)
+        feats = valid = None
+        if lv[0].feats is not None:
+            fm = max(b.feats.shape[1] for b in lv)
+            feats = np.concatenate([np.pad(b.feats, ((0, 0), (0, fm - b.feats.shape[1]), (0, 0))) for b in lv])
+            valid = np.concatenate([np.pad(b.valid, ((0, 0), (0, fm - b.valid.shape[1]))) for b in lv])
         merged.append(BankLevel(
             kernels=np.concatenate([
                 np.pad(b.kernels, ((0, 0), (0, 0), (0, khm - b.kernels.shape[2]), (0, kwm - b.kernels.shape[3])))
@@ -148,8 +183,8 @@ def multiclass_bank_from_numpy(per_class: Sequence[Sequence], device) -> MultiCl
             ]),
             nfeat=np.concatenate([b.nfeat for b in lv]),
             wh=np.concatenate([b.wh for b in lv]),
-            feats=np.concatenate([np.pad(b.feats, ((0, 0), (0, fm - b.feats.shape[1]), (0, 0))) for b in lv]),
-            valid=np.concatenate([np.pad(b.valid, ((0, 0), (0, fm - b.valid.shape[1]))) for b in lv]),
+            feats=feats,
+            valid=valid,
         ))
     pad_map = np.full((len(counts), max(counts)), -1, np.int32)
     start = 0

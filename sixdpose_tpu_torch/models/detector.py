@@ -36,6 +36,7 @@ from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops.similarity import (
     score_normalize,
     similarity_dense,
+    similarity_local,
     similarity_local_sparse_auto,
     similarity_multiscale_matmul,
 )
@@ -94,6 +95,7 @@ def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...]
 
 def pyramid_refine(
     response_pyramid,
+    kernels,
     nfeats,
     whs,
     feats,
@@ -110,16 +112,26 @@ def pyramid_refine(
 
     Candidate arrays are ([B,] K) with template ids into the bank arrays;
     response maps are ([B,] C, H_l, W_l).  Returns updated (tid, x, y,
-    score).  Dead candidates (score < 0) are passed to the kernel as
-    inactive and score zeros there.
+    score).
+
+    With feature lists (``feats`` and ``valids``), each level re-scores the
+    candidates with the local-refine kernel
+    (``similarity_local_sparse_auto``); dead candidates (score < 0) are
+    passed to it as inactive and score zeros there.  Without them
+    (``feats`` None, a bank of kernels only), each level re-scores every
+    candidate, dead ones too, by the grouped conv of ``similarity_local``
+    over ``kernels``, as the JAX package does for such a bank.
 
     ``scale`` (([B,] K) float32, the multi-scale matchers') scales each
     candidate's features and extent, as the JAX package's
     ``_refine_scaled_candidates`` does: the extent is round(wh * scale) (one
     float32 multiply, rounded half to even), the kernel scales the feature
     coordinates, and scores are normalized by the kernel's count of
-    in-range features (at least 1) instead of the template's count.
+    in-range features (at least 1) instead of the template's count.  It
+    needs the feature lists: the grouped conv has no scaled form.
     """
+    if scale is not None and feats is None:
+        raise ValueError("pyramid_refine: per-candidate scales need the bank's feature lists")
     levels = len(t_at_level)
     tid_l = tid.long()
     for l in range(levels - 2, -1, -1):
@@ -138,11 +150,15 @@ def pyramid_refine(
         og_y = (y // t - 8).clamp(min=0)
         origins = torch.stack([og_y * t, og_x * t], dim=-1).to(torch.int32)
 
-        raw_local, nf_sel = similarity_local_sparse_auto(
-            response_pyramid[l], feats[l][tid_l], valids[l][tid_l], origins, t,
-            scale=scale, active=score >= 0,
-        )
-        local_scores = score_normalize(raw_local, nfeats[l][tid_l] if scale is None else nf_sel.clamp(min=1))
+        if feats is None:
+            raw_local = similarity_local(response_pyramid[l], kernels[l][tid_l], origins, t)
+            local_scores = score_normalize(raw_local, nfeats[l][tid_l])
+        else:
+            raw_local, nf_sel = similarity_local_sparse_auto(
+                response_pyramid[l], feats[l][tid_l], valids[l][tid_l], origins, t,
+                scale=scale, active=score >= 0,
+            )
+            local_scores = score_normalize(raw_local, nfeats[l][tid_l] if scale is None else nf_sel.clamp(min=1))
         flat = local_scores.reshape(*local_scores.shape[:-2], -1)
         best = torch.argmax(flat, dim=-1)  # first max wins, like cpp:1913-1926
         new_score = torch.gather(flat, -1, best[..., None])[..., 0]
@@ -203,7 +219,8 @@ def detect_frame_core(
     Args:
       rgb: (H, W, 3) uint8, or (B, H, W, 3) for a batch of frames.
       depth: (H, W) or (B, H, W) int32 depth in mm.
-      bank: the class's device bank, on the images' device.
+      bank: the class's device bank, on the images' device; without
+        feature lists it takes the dense-kernel route (``pyramid_refine``).
       cfg: the detector configuration.
       threshold: similarity threshold in [0, 100].
       apply_nms: box NMS (else keep = score >= 0).
@@ -222,7 +239,7 @@ def detect_frame_core(
     x = xi * t_c + _offset(t_c)
     y = yi * t_c + _offset(t_c)
     tid, x, y, score = pyramid_refine(
-        pyramid, bank.nfeats, bank.whs, bank.feats, bank.valids, tuple(cfg.t_at_level),
+        pyramid, bank.kernels, bank.nfeats, bank.whs, bank.feats, bank.valids, tuple(cfg.t_at_level),
         threshold, tid, x, y, score,
     )
     order = torch.argsort(-score, dim=-1, stable=True)

@@ -49,7 +49,8 @@ def match_multiclass_core(
     Args:
       response_pyramid: per level (C_maps, H_l, W_l) uint8 response maps of
         one frame.
-      bank: the superbank (global template ids); pad_map: (C, Nmax) int32
+      bank: the superbank (global template ids), with or without feature
+        lists (``pyramid_refine``'s two routes); pad_map: (C, Nmax) int32
         global id of each class's local template, -1 = pad.
       apply_nms: per-class box NMS (else keep = score >= 0).  Matches of
         different classes never suppress each other.
@@ -72,7 +73,7 @@ def match_multiclass_core(
     # All C * K candidates refine together, by global template id.
     gid = torch.gather(safe, 1, tid_l.long())
     _, x, y, score = pyramid_refine(
-        response_pyramid, bank.nfeats, bank.whs, bank.feats, bank.valids, t_at_level, threshold,
+        response_pyramid, bank.kernels, bank.nfeats, bank.whs, bank.feats, bank.valids, t_at_level, threshold,
         gid.reshape(-1), x.reshape(-1), y.reshape(-1), score.reshape(-1),
     )
     x, y, score = (a.reshape(c_n, top_k) for a in (x, y, score))

@@ -150,7 +150,7 @@ def multiscale_multiclass_core(
 
     # All C * K candidates refine together, by global template id.
     _, x, y, score = pyramid_refine(
-        pyramid, None, bank.whs, bank.feats, bank.valids, tuple(cfg.t_at_level), threshold,
+        pyramid, None, None, bank.whs, bank.feats, bank.valids, tuple(cfg.t_at_level), threshold,
         gid.reshape(-1), x.reshape(-1), y.reshape(-1), score.reshape(-1), scale=cand_scale.reshape(-1),
     )
     x, y, score = (a.reshape(c_n, top_k) for a in (x, y, score))

@@ -311,15 +311,16 @@ class BankLevel:
     kernels: (N, C, KH, KW) int8 one-hot conv kernels.
     nfeat:   (N,) int32 total feature count (for score normalization).
     wh:      (N, 2) int32 template (width, height) at this level.
-    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists.
-    valid:   (N, F) bool.
+    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists, or None
+      for the dense-kernel route (``convert.without_features``).
+    valid:   (N, F) bool, or None with ``feats``.
     """
 
     kernels: np.ndarray
     nfeat: np.ndarray
     wh: np.ndarray
-    feats: np.ndarray
-    valid: np.ndarray
+    feats: Optional[np.ndarray]
+    valid: Optional[np.ndarray]
 
 
 class TemplateBank:

@@ -372,24 +372,27 @@ def similarity_multiscale_sparse(
 
 
 def _local_conv_operands(response_maps, kernels_sel, origins, t: int, window: int):
-    """(lhs (1, K*C*t*t, hp, wp), rhs (K, C*t*t, kh, kw)) float32 operands of
-    the grouped conv of ``similarity_local``: candidate k's window of s2d
-    maps is channel group k, its template's s2d kernel group k's filter."""
-    k = kernels_sel.shape[0]
-    rhs = _s2d_kernels(kernels_sel, t).to(torch.float32)
+    """(lhs (1, B*K*C*t*t, hp, wp), rhs (B*K, C*t*t, kh, kw)) float32
+    operands of the grouped conv of ``similarity_local``: candidate k of
+    frame b's window of s2d maps is channel group b*K + k, its template's
+    s2d kernel that group's filter.  Inputs carry a leading frame axis
+    (B = 1 for one frame)."""
+    b, k = kernels_sel.shape[:2]
+    rhs = _s2d_kernels(kernels_sel.flatten(0, 1), t).to(torch.float32)
     ct2, kh, kw = rhs.shape[1:]
-    maps = _s2d_maps(response_maps, t)  # (C*t*t, Hb, Wb)
+    maps = _s2d_maps(response_maps, t)  # (B, C*t*t, Hb, Wb)
     hp = window - 1 + kh
     wp = window - 1 + kw
     pads = F.pad(maps, (0, wp, 0, hp))
     # Window corners clamp into the padded maps, as dynamic_slice clamps.
     hb, wb = maps.shape[-2:]
-    by = (origins[:, 0] // t).to(torch.int64).clamp(0, hb)
-    bx = (origins[:, 1] // t).to(torch.int64).clamp(0, wb)
-    rows = by[:, None] + torch.arange(hp, device=maps.device)  # (K, hp)
-    cols = bx[:, None] + torch.arange(wp, device=maps.device)  # (K, wp)
-    patches = pads[:, rows[:, :, None], cols[:, None, :]]  # (C*t*t, K, hp, wp)
-    lhs = patches.transpose(0, 1).reshape(1, k * ct2, hp, wp).to(torch.float32)
+    by = (origins[..., 0] // t).to(torch.int64).clamp(0, hb)
+    bx = (origins[..., 1] // t).to(torch.int64).clamp(0, wb)
+    rows = by[..., None] + torch.arange(hp, device=maps.device)  # (B, K, hp)
+    cols = bx[..., None] + torch.arange(wp, device=maps.device)  # (B, K, wp)
+    frame = torch.arange(b, device=maps.device)[:, None, None, None]
+    patches = pads[frame, :, rows[..., :, None], cols[..., None, :]]  # (B, K, hp, wp, C*t*t)
+    lhs = patches.permute(0, 1, 4, 2, 3).reshape(1, b * k * ct2, hp, wp).to(torch.float32)
     return lhs, rhs
 
 
@@ -402,23 +405,32 @@ def similarity_local(
 ) -> torch.Tensor:
     """Local similarity of one template per candidate over a window of
     placements, as one grouped convolution (``feature_group_count=K``): the
-    reference's ``similarityLocal`` (cpp:1366-1428).  Same result as
-    ``similarity_local_sparse``, which the main path uses instead.
+    reference's ``similarityLocal`` (cpp:1366-1428), and the JAX package's
+    refinement of a bank without feature lists.  Same result as
+    ``similarity_local_sparse``, which a bank with feature lists takes.
+
+    A batch of frames folds into the group axis: the B * K candidates of B
+    frames are the groups of one convolution.
 
     Args:
-      response_maps: (C, H, W) uint8.
-      kernels_sel: (K, C, KH, KW) int8, each candidate's template kernel.
-      origins: (K, 2) int (y, x) pixel coordinates of each window's
+      response_maps: (C, H, W) uint8, or (B, C, H, W) for a batch of frames.
+      kernels_sel: ([B,] K, C, KH, KW) int8, each candidate's template kernel.
+      origins: ([B,] K, 2) int (y, x) pixel coordinates of each window's
         top-left placement, multiples of t.
       t: stride at this level.
       window: placements per side.
 
     Returns:
-      (K, window, window) float32 raw scores (exact integers, as in
+      ([B,] K, window, window) float32 raw scores (exact integers, as in
       ``similarity_dense``).
     """
+    single = response_maps.dim() == 3
+    if single:
+        response_maps, kernels_sel, origins = response_maps[None], kernels_sel[None], origins[None]
     lhs, rhs = _local_conv_operands(response_maps, kernels_sel, origins, t, window)
-    return torch.round(F.conv2d(lhs, rhs, groups=rhs.shape[0]))[0]
+    out = torch.round(F.conv2d(lhs, rhs, groups=rhs.shape[0]))[0]
+    out = out.reshape(kernels_sel.shape[:2] + out.shape[-2:])
+    return out[0] if single else out
 
 
 def _feature_table(feats, valid, origins, t: int, hb: int, wb: int, scale=None):

@@ -70,15 +70,18 @@ def shard_bank(levels: Sequence, shards: int, index: int, device) -> DeviceBank:
     """Shard ``index`` of ``shards`` of a class's per-level bank (numpy
     ``BankLevel``s of either package) on ``device``: templates
     ``[index * n_local, (index + 1) * n_local)`` of the bank padded to a
-    multiple of ``shards``, padded templates all zero with ``nfeat`` 1."""
+    multiple of ``shards``, padded templates all zero with ``nfeat`` 1.
+    Levels without feature lists (``convert.without_features``) give a
+    shard without them: only the kernels, counts and extents split, as the
+    JAX package's ``sharded_detect`` shards a bank without lists."""
     out = []
     for b in levels:
-        kern, wh, feats, valid = pad_templates(
-            tuple(np.asarray(a) for a in (b.kernels, b.wh, b.feats, b.valid)), shards
-        )
+        fields = (b.kernels, b.wh) if b.feats is None else (b.kernels, b.wh, b.feats, b.valid)
+        kern, wh, *lists = pad_templates(tuple(np.asarray(a) for a in fields), shards)
         nf = np.asarray(b.nfeat)
         nf = np.concatenate([nf, np.ones((-len(nf)) % shards, nf.dtype)])
-        out.append(BankLevel(*(_rows(a, shards, index) for a in (kern, nf, wh, feats, valid))))
+        feats, valid = (_rows(a, shards, index) for a in lists) if lists else (None, None)
+        out.append(BankLevel(*(_rows(a, shards, index) for a in (kern, nf, wh)), feats, valid))
     return bank_levels_from_numpy(out, device)
 
 
@@ -100,7 +103,8 @@ def shard_multiscale_bank(arrays: dict, shards: int, index: int, device) -> Mult
 
 
 def local_bank(mesh, levels: Sequence, device) -> DeviceBank:
-    """This rank's template shard of a class's per-level bank."""
+    """This rank's template shard of a class's per-level bank (with or
+    without feature lists)."""
     return shard_bank(levels, mesh.size(1), _coordinate(mesh)[1], device)
 
 
@@ -212,7 +216,8 @@ def sharded_detect(
       depth_batch: (B, H, W) depth in mm, or None (matched as zeros).
       bank: this rank's template shard (``shard_bank`` with the mesh's
         template size and this rank's template coordinate), on the rank's
-        device.
+        device; a shard without feature lists refines by the grouped conv
+        (``pyramid_refine``).
 
     Returns this rank's data shard (tid, x, y, score, keep), each (B_l, K)
     on the bank's device: tid in global template ids, score sorted

@@ -74,7 +74,7 @@ def tiled_detect(
         takes its slab. H divisible by the tile size.
       depth: (H, W) depth in mm, or None when the depth modality is off.
       bank: the whole class bank (the template axis is not split here), on
-        the rank's device.
+        the rank's device, with or without feature lists.
 
     Returns (tid, x, y, score), each (top_k,) and the same on every rank of
     the tile group: merged candidates in frame coordinates, score sorted

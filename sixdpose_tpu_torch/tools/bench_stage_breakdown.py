@@ -92,8 +92,8 @@ def prefixes(rgb, depth, bank, cfg: DetectorConfig = CFG, threshold: float = THR
     def refine():
         pyramid, (tid, yi, xi, score) = topk()
         t_c = tal[-1]
-        return pyramid_refine(pyramid, bank.nfeats, bank.whs, bank.feats, bank.valids, tal, threshold, tid,
-                              xi * t_c + _offset(t_c), yi * t_c + _offset(t_c), score)
+        return pyramid_refine(pyramid, bank.kernels, bank.nfeats, bank.whs, bank.feats, bank.valids, tal, threshold,
+                              tid, xi * t_c + _offset(t_c), yi * t_c + _offset(t_c), score)
 
     def full():
         return detect_frame_core(rgb, depth, bank, cfg, threshold)

@@ -26,7 +26,8 @@ import torch
 
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig
-from sixdpose_tpu_torch.models.detector import Detector
+from sixdpose_tpu_torch.entry import entry
+from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops.similarity import similarity_local_sparse
 
@@ -134,6 +135,36 @@ def test_detector_on_card_equals_cpu_run(cuda):
     for i in range(2):
         assert _same([a[i] for a in batch], dets["cpu"].match_arrays(frames[i], dep, 30.0, cid))
     assert LR.similarity_local_sparse_cuda.launches == before + 3
+
+
+def test_dense_route_on_card_equals_cpu_and_the_entry_golden(cuda):
+    """The bank without feature lists (grouped-conv refinement): a cut bench
+    workload at VGA, one frame and a batch of two, at 75 and 30, equal on
+    the card and the CPU in every slot, and ``entry()`` on the card equal to
+    the JAX golden; the route launches no refine kernel."""
+    cid, templates, rgb, dep = synthetic.bench_bank(num_templates=8)
+    banks = {}
+    for device in (cuda, "cpu"):
+        det = Detector(DetectorConfig(t_at_level=(5, 8)), device=device)
+        for tl in templates:
+            det.bank.add_template_levels(cid, tl)
+        banks[device] = det.device_bank(cid).without_features()
+    frames = np.stack([rgb, rgb ^ np.uint8(1)])
+    deps = np.stack([dep, dep]).astype(np.int32)
+    before = LR.similarity_local_sparse_cuda.launches
+    for thr in (75.0, 30.0):
+        for r, d in ((frames[0], deps[0]), (frames, deps)):
+            got = detect_frame_core(torch.from_numpy(r).to(cuda), torch.from_numpy(d).to(cuda), banks[cuda],
+                                    DetectorConfig(t_at_level=(5, 8)), thr)
+            want = detect_frame_core(torch.from_numpy(r), torch.from_numpy(d), banks["cpu"],
+                                     DetectorConfig(t_at_level=(5, 8)), thr)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    g = np.load(os.path.join(TESTDATA, "entry_golden.npz"))
+    fn, args = entry(device=cuda)
+    out = fn(*args)
+    for name, a in zip(("tid", "x", "y", "score", "keep"), out):
+        np.testing.assert_array_equal(a.cpu().numpy(), g[name])
+    assert LR.similarity_local_sparse_cuda.launches == before
 
 
 def test_planted_golden_on_card(cuda):

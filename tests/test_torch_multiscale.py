@@ -158,8 +158,8 @@ def test_scaled_pyramid_refine_matches_jax():
         jnp.asarray(score), jnp.asarray(scale),
     )
     _, gx, gy, gs = TD.pyramid_refine(
-        [T(m) for m in levels], None, [T(w) for w in whs], [T(f) for f in feats], [T(v) for v in valids], (4, 8), 30.0,
-        T(tid), T(x), T(y), T(score), scale=T(scale),
+        [T(m) for m in levels], None, None, [T(w) for w in whs], [T(f) for f in feats], [T(v) for v in valids], (4, 8),
+        30.0, T(tid), T(x), T(y), T(score), scale=T(scale),
     )
     want = [np.asarray(a) for a in want]
     live = want[2] >= 0

@@ -8,8 +8,7 @@ directory, every join under its own timeout) over gloo; JAX runs its
 spawn of 8 ranks runs every port job of the file:
 
 - ``sharded_detect`` at data 2 x template 4 against JAX's, live, on the
-  four-scene bank of tests/test_sharding.py (the feature-sparse path: the
-  port has no grouped-conv refinement);
+  four-scene bank of tests/test_sharding.py (the feature-sparse path);
 - ``tiled_detect`` at tile 4 on scenes 0 and 2, and
   ``sharded_multiscale_detect`` at template 4, against the JAX golden of
   ``tools/torch_port_parallel_golden.py`` (whose banks the port loads).
@@ -19,7 +18,11 @@ spawn of 8 ranks runs every port job of the file:
   ``sharded_detect_refine``, ``fused_multiclass_over_data`` and
   ``multiscale_multiclass_over_data`` against JAX's cores run per frame
   under ``jax.jit`` (the data axis carries no collective, so this is what
-  ``shard_map`` over ``P("data")`` computes) and JAX's ``sharded_detect``.
+  ``shard_map`` over ``P("data")`` computes) and JAX's ``sharded_detect``;
+- the dense-kernel route (a bank without feature lists, refined by the
+  grouped conv) at the dry run's shapes: ``sharded_detect`` at data 2 x
+  template 2 and ``tiled_detect`` at tile 2 against JAX's, live, in every
+  field of every slot (on this route both packages score dead candidates).
 
 Live candidates are compared in every field; dead slots (score -1) in tid,
 score and keep, not in x and y: the port's refinement zeroes dead
@@ -61,8 +64,9 @@ from sixdpose_tpu.parallel import pad_templates as jpad_templates
 from sixdpose_tpu.parallel import sharded_detect as jsharded_detect
 from sixdpose_tpu.parallel.sharded_match import _merge_topk as j_merge_topk
 from sixdpose_tpu.parallel.tiled_match import required_halo as jrequired_halo
+from sixdpose_tpu.parallel.tiled_match import tiled_detect as jtiled_detect
 from sixdpose_tpu_torch.config import ColorGradientConfig, DetectorConfig, IcpConfig
-from sixdpose_tpu_torch.convert import refine_bank_from_numpy
+from sixdpose_tpu_torch.convert import refine_bank_from_numpy, without_features
 from sixdpose_tpu_torch.models.detector import Detector
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline
 from sixdpose_tpu_torch.models.templates import TemplateLevel
@@ -125,6 +129,7 @@ def _jobs(golden, banks):
 # -- the dry run's inputs at n = 8 (__graft_entry__.dryrun_multichip) ------------
 
 DRY_MESH = (2, 4, 1)
+DENSE_MESHES = ((2, 2, 1), (1, 1, 2))  # the dense-kernel route's sharded and tiled jobs
 DRY_CLASSES = ("obj_a", "obj_b")
 DRY_THRESHOLDS = (10.0, 50.0)  # the dry run's, and one at which some hypotheses stay inactive
 DRY_POINTS = 64
@@ -184,6 +189,10 @@ def _dry_jobs(dry):
                   **common) for thr in DRY_THRESHOLDS]
     jobs.append(dict(kind="fused_ms", train_depth=800.0, num_scales=3, top_k=MS_TOPK, threshold=10.0, **classes,
                      **common))
+    dense = without_features(det.bank.finalized("obj"))
+    jobs.append(dict(common, kind="sharded", mesh=DENSE_MESHES[0], levels=dense, threshold=10.0))
+    jobs.append(dict(common, kind="tiled", mesh=DENSE_MESHES[1], levels=dense, rgb=dry["rgb"][0],
+                     depth=dry["depth"][0], threshold=10.0))
     return jobs
 
 
@@ -606,3 +615,55 @@ def test_multiscale_multiclass_over_data_matches_jax(dry_runs, jax_fused_ms):
         else:
             np.testing.assert_array_equal(a[live], b[live], err_msg=name)
     assert live.sum() >= 4 * len(DRY_CLASSES)
+
+
+# -- the dense-kernel route over ranks -------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def jax_dense(dry):
+    """JAX's ``sharded_detect`` at data 2 x template 2 and ``tiled_detect`` at
+    tile 2 (frame 0) on the dry run's detect bank passed without feature
+    lists, at the dry run's threshold."""
+    jdet = _jax_dry_detector([dry["detect_bank"]], ["obj"])
+    kernels, nfeats, whs = jdet.device_bank("obj")
+    n_t = DENSE_MESHES[0][1]
+    pad = lambda arrs: tuple(jnp.asarray(a) for a in jpad_templates(tuple(np.asarray(x) for x in arrs), n_t))  # noqa
+    nf = tuple(jnp.asarray(np.concatenate([np.asarray(n), np.ones((-len(n)) % n_t, np.int32)])) for n in nfeats)
+    sharded = jsharded_detect(jmake_mesh(data=DENSE_MESHES[0][0], template=n_t), jnp.asarray(dry["rgb"]),
+                              jnp.asarray(dry["depth"]), pad(kernels), nf, pad(whs), jdet.cfg, 10.0)
+    tiled = jtiled_detect(jmake_mesh(tile=DENSE_MESHES[1][2]), jnp.asarray(dry["rgb"][0]),
+                          jnp.asarray(dry["depth"][0]), kernels, nfeats, whs, jdet.cfg, 10.0)
+    return [np.asarray(a) for a in sharded], [np.asarray(a) for a in tiled]
+
+
+def _dense_job(dry_runs, mesh):
+    """Rank results of the dense route's job on ``mesh``: exactly the mesh's
+    ranks answer, and none launched the card's kernel."""
+    job = len(dry_runs[0]) - len(DENSE_MESHES) + DENSE_MESHES.index(mesh)
+    answered = [r for r in range(RANKS) if dry_runs[r][job] is not None]
+    assert answered == list(range(int(np.prod(mesh))))
+    assert all(dry_runs[r][job]["launches"] == 0 for r in answered)
+    return [dry_runs[r][job]["outputs"] for r in answered]
+
+
+def test_dense_sharded_detect_matches_jax(dry_runs, jax_dense):
+    ranks = _dense_job(dry_runs, DENSE_MESHES[0])
+    want = jax_dense[0]
+    assert ranks[0][0].shape == (4, 8)
+    for got in ranks:
+        for name, a, b in zip(SHARDED, got, want):
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (want[3] >= 0).sum() >= 8
+
+
+def test_dense_tiled_detect_matches_jax(dry_runs, jax_dense):
+    ranks = _dense_job(dry_runs, DENSE_MESHES[1])
+    want = jax_dense[1]
+    assert ranks[0][0].shape == (8,)
+    for got in ranks:
+        for name, a, b in zip(SHARDED[:4], got, want):
+            assert a.dtype == b.dtype, name
+            np.testing.assert_array_equal(a, b, err_msg=name)
+    assert (want[3] >= 0).sum() >= 2
