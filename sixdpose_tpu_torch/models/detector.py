@@ -42,6 +42,7 @@ from sixdpose_tpu_torch.ops.similarity import (
 )
 from sixdpose_tpu_torch.ops.spread import compute_response_maps, spread_orientations
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
+from sixdpose_tpu_torch.utils.timing import frame_entry, span, stage
 
 # Dense-conv size (multiply-adds) above which the coarse level is scored with
 # shift-bucketed matmuls (similarity_multiscale_matmul), as in the JAX package.
@@ -93,6 +94,7 @@ def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...]
     return score_normalize(raw, nfeats[coarse].expand(raw.shape[:-2]))
 
 
+@stage("refine")
 def pyramid_refine(
     response_pyramid,
     kernels,
@@ -170,6 +172,7 @@ def pyramid_refine(
     return tid, x, y, score
 
 
+@stage("pyramid")
 def _build_response_pyramid(rgb, depth, cfg: DetectorConfig) -> List[torch.Tensor]:
     """Quantize -> spread -> response maps per level (cpp:1726-1752).
 
@@ -234,22 +237,25 @@ def detect_frame_core(
         depth = depth[None] if depth is not None else None
     pyramid = _build_response_pyramid(rgb, depth, cfg)
     t_c = cfg.t_at_level[-1]
-    scores = coarse_scores(pyramid, bank.kernels, bank.nfeats, tuple(cfg.t_at_level), bank.feats, bank.valids)
-    tid, yi, xi, score = topk_candidates(scores, threshold, cfg.top_k)
-    x = xi * t_c + _offset(t_c)
-    y = yi * t_c + _offset(t_c)
+    with span("coarse"):
+        scores = coarse_scores(pyramid, bank.kernels, bank.nfeats, tuple(cfg.t_at_level), bank.feats, bank.valids)
+    with span("topk"):
+        tid, yi, xi, score = topk_candidates(scores, threshold, cfg.top_k)
+        x = xi * t_c + _offset(t_c)
+        y = yi * t_c + _offset(t_c)
     tid, x, y, score = pyramid_refine(
         pyramid, bank.kernels, bank.nfeats, bank.whs, bank.feats, bank.valids, tuple(cfg.t_at_level),
         threshold, tid, x, y, score,
     )
-    order = torch.argsort(-score, dim=-1, stable=True)
-    tid, x, y, score = (torch.gather(a, -1, order) for a in (tid, x, y, score))
-    if apply_nms:
-        wh0 = bank.whs[0][tid.long()]
-        boxes = torch.stack([x, y, wh0[..., 0], wh0[..., 1]], dim=-1).to(torch.float32)
-        keep = nms_boxes(boxes, score, cfg.nms_iou)
-    else:
-        keep = score >= 0
+    with span("nms"):
+        order = torch.argsort(-score, dim=-1, stable=True)
+        tid, x, y, score = (torch.gather(a, -1, order) for a in (tid, x, y, score))
+        if apply_nms:
+            wh0 = bank.whs[0][tid.long()]
+            boxes = torch.stack([x, y, wh0[..., 0], wh0[..., 1]], dim=-1).to(torch.float32)
+            keep = nms_boxes(boxes, score, cfg.nms_iou)
+        else:
+            keep = score >= 0
     if single:
         return tid[0], x[0], y[0], score[0], keep[0]
     return tid, x, y, score, keep
@@ -263,10 +269,11 @@ detect_frame = detect_frame_core
 def frame_response_pyramid(rgb, depth, cfg: DetectorConfig, device) -> List[torch.Tensor]:
     """Per-level (C, H_l, W_l) uint8 response maps of one frame (arrays or
     tensors, either may be None when its modality is off) on ``device``."""
+    with span("upload"):
+        rgb_t = _image(rgb, torch.uint8, device)
+        depth_t = _image(depth, torch.int32, device)
     pyr = _build_response_pyramid(
-        _image(rgb, torch.uint8, device)[None] if rgb is not None else None,
-        _image(depth, torch.int32, device)[None] if depth is not None else None,
-        cfg,
+        rgb_t[None] if rgb_t is not None else None, depth_t[None] if depth_t is not None else None, cfg
     )
     return [p[0] for p in pyr]
 
@@ -332,9 +339,12 @@ class Detector:
     def match_arrays(self, rgb, depth, threshold: float, class_id: str, apply_nms: bool = True):
         """Detection of one class in one frame; returns device tensors
         (tid, x, y, score, keep), each (K,)."""
+        with span("upload"):
+            rgb_t = _image(rgb, torch.uint8, self.device)
+            depth_t = _image(depth, torch.int32, self.device)
         return detect_frame(
-            _image(rgb, torch.uint8, self.device),
-            _image(depth, torch.int32, self.device),
+            rgb_t,
+            depth_t,
             self.device_bank(class_id),
             self.cfg,
             float(threshold),
@@ -347,12 +357,14 @@ class Detector:
         """Detection over a batch of frames (one kernel launch per level for
         the whole batch).  A missing depth batch is zeros.  Returns (tid, x,
         y, score, keep), each (B, K)."""
-        rgb_b = _image(rgb_batch, torch.uint8, self.device)
-        dep_b = _image(depth_batch, torch.int32, self.device)
-        if dep_b is None:
-            dep_b = torch.zeros(rgb_b.shape[:3], dtype=torch.int32, device=self.device)
+        with span("upload"):
+            rgb_b = _image(rgb_batch, torch.uint8, self.device)
+            dep_b = _image(depth_batch, torch.int32, self.device)
+            if dep_b is None:
+                dep_b = torch.zeros(rgb_b.shape[:3], dtype=torch.int32, device=self.device)
         return detect_frame(rgb_b, dep_b, self.device_bank(class_id), self.cfg, float(threshold), apply_nms)
 
+    @frame_entry
     def match(
         self,
         rgb,
@@ -370,7 +382,8 @@ class Detector:
             if self.bank.num_templates(cid) == 0:
                 continue
             arrays = self.match_arrays(rgb, depth, threshold, cid, apply_nms)
-            tid_np, x_np, y_np, s_np, k_np = (a.cpu().numpy() for a in arrays)
+            with span("readback"):
+                tid_np, x_np, y_np, s_np, k_np = (a.cpu().numpy() for a in arrays)
             for i in range(len(s_np)):
                 if k_np[i] and s_np[i] >= 0:
                     out.append(

@@ -32,6 +32,7 @@ from sixdpose_tpu_torch.models.detector import (
     pyramid_refine,
 )
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
+from sixdpose_tpu_torch.utils.timing import frame_entry, span
 
 
 def match_multiclass_core(
@@ -60,32 +61,35 @@ def match_multiclass_core(
     descending, -1 on dead slots.
     """
     t_c = t_at_level[-1]
-    scores = coarse_scores(response_pyramid, bank.kernels, bank.nfeats, t_at_level, bank.feats, bank.valids)
-    # Each class's templates at its own row of a (C, Nmax) grid; pad rows
-    # score -1 and never pass the threshold.
-    safe = pad_map.clamp(min=0).long()
-    padded = torch.where((pad_map >= 0)[:, :, None, None], scores[safe], -1.0)
-    tid_l, yi, xi, score = topk_candidates(padded, threshold, top_k)  # each (C, K)
-    c_n = pad_map.shape[0]
-    x = xi * t_c + _offset(t_c)
-    y = yi * t_c + _offset(t_c)
+    with span("coarse"):
+        scores = coarse_scores(response_pyramid, bank.kernels, bank.nfeats, t_at_level, bank.feats, bank.valids)
+        # Each class's templates at its own row of a (C, Nmax) grid; pad rows
+        # score -1 and never pass the threshold.
+        safe = pad_map.clamp(min=0).long()
+        padded = torch.where((pad_map >= 0)[:, :, None, None], scores[safe], -1.0)
+    with span("topk"):
+        tid_l, yi, xi, score = topk_candidates(padded, threshold, top_k)  # each (C, K)
+        c_n = pad_map.shape[0]
+        x = xi * t_c + _offset(t_c)
+        y = yi * t_c + _offset(t_c)
+        gid = torch.gather(safe, 1, tid_l.long())
 
     # All C * K candidates refine together, by global template id.
-    gid = torch.gather(safe, 1, tid_l.long())
     _, x, y, score = pyramid_refine(
         response_pyramid, bank.kernels, bank.nfeats, bank.whs, bank.feats, bank.valids, t_at_level, threshold,
         gid.reshape(-1), x.reshape(-1), y.reshape(-1), score.reshape(-1),
     )
     x, y, score = (a.reshape(c_n, top_k) for a in (x, y, score))
 
-    order = torch.argsort(-score, dim=1, stable=True)
-    tid_l, gid, x, y, score = (torch.gather(a, 1, order) for a in (tid_l, gid, x, y, score))
-    if apply_nms:
-        wh0 = bank.whs[0][gid]
-        boxes = torch.stack([x, y, wh0[..., 0], wh0[..., 1]], dim=-1).to(torch.float32)
-        keep = nms_boxes(boxes, score, nms_iou)
-    else:
-        keep = score >= 0
+    with span("nms"):
+        order = torch.argsort(-score, dim=1, stable=True)
+        tid_l, gid, x, y, score = (torch.gather(a, 1, order) for a in (tid_l, gid, x, y, score))
+        if apply_nms:
+            wh0 = bank.whs[0][gid]
+            boxes = torch.stack([x, y, wh0[..., 0], wh0[..., 1]], dim=-1).to(torch.float32)
+            keep = nms_boxes(boxes, score, nms_iou)
+        else:
+            keep = score >= 0
     return tid_l, x, y, score, keep
 
 
@@ -121,12 +125,15 @@ class MultiClassMatcher:
             float(threshold), self.cfg.top_k, self.cfg.nms_iou,
         )
 
+    @frame_entry
     def match(self, rgb, depth, threshold: float) -> List[Match]:
         """The reference ``Detector::match`` over every class (cpp:1753-1769
         scores the classes inside one call), plus the box NMS of its test
         script.  One readback: the five (C, K) results travel to the host
         as one float64 tensor (int32 and float32 are exact in it)."""
-        out = torch.stack([a.to(torch.float64) for a in self.match_arrays(rgb, depth, threshold)]).cpu().numpy()
+        arrays = self.match_arrays(rgb, depth, threshold)
+        with span("readback"):
+            out = torch.stack([a.to(torch.float64) for a in arrays]).cpu().numpy()
         tid, x, y, score, keep = out
         matches: List[Match] = []
         for ci, cid in enumerate(self.class_ids):

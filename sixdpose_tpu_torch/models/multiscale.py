@@ -41,10 +41,11 @@ import torch.nn.functional as F
 from sixdpose_tpu_torch.config import DetectorConfig
 from sixdpose_tpu_torch.convert import MultiScaleBank, multiscale_arrays, multiscale_bank_from_arrays
 from sixdpose_tpu_torch.device import resolve_device
-from sixdpose_tpu_torch.models.detector import Detector, Match, _image, _offset, frame_response_pyramid, pyramid_refine
+from sixdpose_tpu_torch.models.detector import Detector, Match, _build_response_pyramid, _image, _offset, pyramid_refine
 from sixdpose_tpu_torch.ops.scale_proposal import bin_centers, propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import score_normalize, similarity_multiscale_matmul
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
+from sixdpose_tpu_torch.utils.timing import frame_entry, span, stage
 
 
 @dataclasses.dataclass
@@ -55,6 +56,7 @@ class ScaleMatch(Match):
     scale: float = 1.0
 
 
+@stage("proposals")
 def proposals(depth, bin_scales: torch.Tensor, num_scales: int, bins: Tuple[int, int, int]):
     """Depth proposals of one frame: (bin_idx (S,) int32, depths (S,)
     float32, valid (S,) bool, scales (S,) float32 = the bin's scale, 0 where
@@ -122,31 +124,33 @@ def multiscale_multiclass_core(
     t_c = cfg.t_at_level[-1]
     n = bank.feats[0].shape[0]
     c_n, nmax = bank.pad_map.shape
-    pyramid = frame_response_pyramid(rgb, depth, cfg, depth.device)
+    pyramid = [p[0] for p in _build_response_pyramid(rgb[None] if rgb is not None else None, depth[None], cfg)]
     _, depths, valid, scales = proposals(depth, bin_scales, num_scales, bins)
     s = scales.shape[0]
     pb, qb = bank.pad_kb
-    scores = coarse_sweep(F.pad(pyramid[-1], (0, qb * t_c, 0, pb * t_c)), bank, t_c, valid, scales)
+    with span("coarse"):
+        scores = coarse_sweep(F.pad(pyramid[-1], (0, qb * t_c, 0, pb * t_c)), bank, t_c, valid, scales)
 
-    # Each class's rows across every scale, at (C, S * Nmax); pad rows and
-    # anchors outside the class's own range score -1.
-    pm = bank.pad_map.clamp(min=0).long()
-    ids = (torch.arange(s, device=pm.device)[None, :, None] * n + pm[:, None, :]).reshape(c_n, s * nmax)
-    cls_scores = scores[ids]  # (C, S * Nmax, Hb, Wb)
-    pad_ok = (bank.pad_map >= 0).repeat(1, s)
-    hb0 = -(-pyramid[-1].shape[-2] // t_c)
-    wb0 = -(-pyramid[-1].shape[-1] // t_c)
-    yi_g = torch.arange(cls_scores.shape[2], device=pm.device)[None, :, None]
-    xi_g = torch.arange(cls_scores.shape[3], device=pm.device)[None, None, :]
-    in_range = (yi_g <= hb0 - bank.cls_kb[:, 0, None, None]) & (xi_g <= wb0 - bank.cls_kb[:, 1, None, None])
-    cls_scores = torch.where(pad_ok[:, :, None, None] & in_range[:, None], cls_scores, -1.0)
-    tid_sc, yi, xi, score = topk_candidates(cls_scores, threshold, top_k)  # each (C, K)
-    x = xi * t_c + _offset(t_c)
-    y = yi * t_c + _offset(t_c)
-    scale_idx = tid_sc // nmax
-    tid_l = tid_sc % nmax
-    gid = torch.gather(pm, 1, tid_l.long())
-    cand_scale = scales[scale_idx.long()]
+        # Each class's rows across every scale, at (C, S * Nmax); pad rows and
+        # anchors outside the class's own range score -1.
+        pm = bank.pad_map.clamp(min=0).long()
+        ids = (torch.arange(s, device=pm.device)[None, :, None] * n + pm[:, None, :]).reshape(c_n, s * nmax)
+        cls_scores = scores[ids]  # (C, S * Nmax, Hb, Wb)
+        pad_ok = (bank.pad_map >= 0).repeat(1, s)
+        hb0 = -(-pyramid[-1].shape[-2] // t_c)
+        wb0 = -(-pyramid[-1].shape[-1] // t_c)
+        yi_g = torch.arange(cls_scores.shape[2], device=pm.device)[None, :, None]
+        xi_g = torch.arange(cls_scores.shape[3], device=pm.device)[None, None, :]
+        in_range = (yi_g <= hb0 - bank.cls_kb[:, 0, None, None]) & (xi_g <= wb0 - bank.cls_kb[:, 1, None, None])
+        cls_scores = torch.where(pad_ok[:, :, None, None] & in_range[:, None], cls_scores, -1.0)
+    with span("topk"):
+        tid_sc, yi, xi, score = topk_candidates(cls_scores, threshold, top_k)  # each (C, K)
+        x = xi * t_c + _offset(t_c)
+        y = yi * t_c + _offset(t_c)
+        scale_idx = tid_sc // nmax
+        tid_l = tid_sc % nmax
+        gid = torch.gather(pm, 1, tid_l.long())
+        cand_scale = scales[scale_idx.long()]
 
     # All C * K candidates refine together, by global template id.
     _, x, y, score = pyramid_refine(
@@ -155,19 +159,21 @@ def multiscale_multiclass_core(
     )
     x, y, score = (a.reshape(c_n, top_k) for a in (x, y, score))
 
-    order = torch.argsort(-score, dim=1, stable=True)
-    tid_l, scale_idx, x, y, score, cand_scale = (
-        torch.gather(a, 1, order) for a in (tid_l, scale_idx, x, y, score, cand_scale)
-    )
-    if apply_nms:
-        gid = torch.gather(pm, 1, tid_l.long())
-        wh0 = torch.round(bank.whs[0][gid].to(torch.float32) * cand_scale[..., None])
-        keep = nms_boxes(_boxes(x, y, wh0), score, cfg.nms_iou)
-    else:
-        keep = score >= 0
-    return tid_l, x, y, score, keep, depths[scale_idx.long()], cand_scale
+    with span("nms"):
+        order = torch.argsort(-score, dim=1, stable=True)
+        tid_l, scale_idx, x, y, score, cand_scale = (
+            torch.gather(a, 1, order) for a in (tid_l, scale_idx, x, y, score, cand_scale)
+        )
+        if apply_nms:
+            gid = torch.gather(pm, 1, tid_l.long())
+            wh0 = torch.round(bank.whs[0][gid].to(torch.float32) * cand_scale[..., None])
+            keep = nms_boxes(_boxes(x, y, wh0), score, cfg.nms_iou)
+        else:
+            keep = score >= 0
+        return tid_l, x, y, score, keep, depths[scale_idx.long()], cand_scale
 
 
+@stage("readback")
 def _readback(arrays) -> np.ndarray:
     """The seven results in one device-to-host copy (int32, float32 and bool
     are exact in float64)."""
@@ -186,6 +192,7 @@ class _Bins:
         self.max_scale = float(self.bin_scales_np.max())
         self.bin_scales = torch.from_numpy(self.bin_scales_np).to(self.device)
 
+    @stage("upload")
     def images(self, rgb, depth):
         return _image(rgb, torch.uint8, self.device), _image(depth, torch.int32, self.device)
 
@@ -223,6 +230,7 @@ class MultiScaleDetector(_Bins):
                                          float(threshold), self.num_scales, self.cfg.top_k, apply_nms, self.bins)
         return tuple(a[0] for a in out)
 
+    @frame_entry
     def match(self, rgb, depth, threshold: float, class_id: str, apply_nms: bool = True) -> List[ScaleMatch]:
         """Matches of one class above ``threshold``, best first; one
         readback."""
@@ -264,6 +272,8 @@ class MultiScaleMultiClass(_Bins):
         rgb_t, depth_t = self.images(rgb, depth)
         return multiscale_multiclass_core(rgb_t, depth_t, self.bank, self.bin_scales, self.cfg, float(threshold),
                                           self.num_scales, self.cfg.top_k, apply_nms, self.bins)
+
+    @frame_entry
     def match(self, rgb, depth, threshold: float, apply_nms: bool = True) -> List[ScaleMatch]:
         """Matches of every class above ``threshold``, best first; one
         readback."""

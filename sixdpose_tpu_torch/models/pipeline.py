@@ -53,6 +53,7 @@ from sixdpose_tpu_torch.models.refine import (
     scene_normals,
     verify_poses_multi,
 )
+from sixdpose_tpu_torch.utils.timing import frame_entry, span
 
 
 def refine_bank_fields(detector: Detector, class_id: str, num_points: int = 512):
@@ -279,65 +280,68 @@ def _refine_hypotheses(
     hypotheses have fitness = verify = -1.
     """
     m_n = gid.shape[0]
-    # Candidate seeding: window-median depth -> centroid shift, then the
-    # in-plane seed fan (M -> M * S candidates).
-    init_T = _seed_candidates(depth, x, y, rb.bbox_wh[gid], rb.src_c[gid], K, rb.win)
     s_n = icp_seeds
-    init_T = _inplane_seed_transforms(init_T, rb.src_c[gid], s_n, seed_step_deg, seed_flip)
-    gid_e = _repeat(gid, s_n)
-    act_e = _repeat(active, s_n)
+    with span("icp"):
+        # Candidate seeding: window-median depth -> centroid shift, then the
+        # in-plane seed fan (M -> M * S candidates).
+        init_T = _seed_candidates(depth, x, y, rb.bbox_wh[gid], rb.src_c[gid], K, rb.win)
+        init_T = _inplane_seed_transforms(init_T, rb.src_c[gid], s_n, seed_step_deg, seed_flip)
+        gid_e = _repeat(gid, s_n)
+        act_e = _repeat(active, s_n)
 
-    # Batched ICP against the frame's scene maps.
-    sp = backproject(depth, K)
-    sn = scene_normals(sp)
-    use_color = rb.chroma is not None and rgb is not None and icp.color_weight > 0
-    chroma_maps = scene_chroma(rgb) if use_color else None
-    Ts, fits, _ = icp_batch(
-        rb.clouds[gid_e],
-        rb.valids[gid_e] & act_e[:, None],
-        sp,
-        sn,
-        K,
-        init_T,
-        icp.corr_dist,
-        icp.max_iters,
-        icp.coarse_gate_mult,
-        model_chroma=rb.chroma[gid_e] if use_color else None,
-        chroma_maps=chroma_maps,
-        color_weight=icp.color_weight,
-        chroma_scale=icp.chroma_scale,
-        point_weight=icp.point_weight,
-        lm_damping=icp.lm_damping,
-        bilinear_iters=icp.bilinear_iters,
-        coarse_points=icp.coarse_points,
-    )
-
-    # Compose with the template pose, then verify every candidate with its
-    # own point set.
-    result = _matmul(Ts, rb.base_T[gid_e])
-    R_out = result[:, :3, :3]
-    t_out = result[:, :3, 3] * 1000.0  # mm
-    if verify_pts is not None:
-        v = _repeat(verify_of, s_n)
-        vscore = verify_poses_multi(
-            verify_pts[v], verify_valid[v], R_out, t_out, depth, K,
-            tau_mm=verify_tau,
-            model_colors=verify_colors[v] if verify_colors is not None else None,
-            rgb=rgb if verify_colors is not None else None,
-            color_weight=verify_color_weight,
-            color_zscore=verify_color_zscore,
+        # Batched ICP against the frame's scene maps.
+        sp = backproject(depth, K)
+        sn = scene_normals(sp)
+        use_color = rb.chroma is not None and rgb is not None and icp.color_weight > 0
+        chroma_maps = scene_chroma(rgb) if use_color else None
+        Ts, fits, _ = icp_batch(
+            rb.clouds[gid_e],
+            rb.valids[gid_e] & act_e[:, None],
+            sp,
+            sn,
+            K,
+            init_T,
+            icp.corr_dist,
+            icp.max_iters,
+            icp.coarse_gate_mult,
+            model_chroma=rb.chroma[gid_e] if use_color else None,
+            chroma_maps=chroma_maps,
+            color_weight=icp.color_weight,
+            chroma_scale=icp.chroma_scale,
+            point_weight=icp.point_weight,
+            lm_damping=icp.lm_damping,
+            bilinear_iters=icp.bilinear_iters,
+            coarse_points=icp.coarse_points,
         )
-    else:
-        vscore = torch.full((m_n * s_n,), -1.0, dtype=torch.float32, device=depth.device)
-    fits = torch.where(act_e, fits, -1.0)
-    vscore = torch.where(act_e, vscore, -1.0)
 
-    if s_n > 1:
-        # Each hypothesis's best seed: verify-ranked, fitness as tiebreaker
-        # (and as the rank when verify is off).
-        seed_rank = torch.where(vscore >= 0, vscore * 100.0 + fits.clamp(min=0.0), fits).reshape(m_n, s_n)
-        pick = torch.arange(m_n, device=depth.device) * s_n + torch.argmax(seed_rank, dim=1)
-        R_out, t_out, fits, vscore = R_out[pick], t_out[pick], fits[pick], vscore[pick]
+        # Compose with the template pose.
+        result = _matmul(Ts, rb.base_T[gid_e])
+        R_out = result[:, :3, :3]
+        t_out = result[:, :3, 3] * 1000.0  # mm
+
+    # Verify every candidate with its own point set.
+    with span("verify"):
+        if verify_pts is not None:
+            v = _repeat(verify_of, s_n)
+            vscore = verify_poses_multi(
+                verify_pts[v], verify_valid[v], R_out, t_out, depth, K,
+                tau_mm=verify_tau,
+                model_colors=verify_colors[v] if verify_colors is not None else None,
+                rgb=rgb if verify_colors is not None else None,
+                color_weight=verify_color_weight,
+                color_zscore=verify_color_zscore,
+            )
+        else:
+            vscore = torch.full((m_n * s_n,), -1.0, dtype=torch.float32, device=depth.device)
+        fits = torch.where(act_e, fits, -1.0)
+        vscore = torch.where(act_e, vscore, -1.0)
+
+        if s_n > 1:
+            # Each hypothesis's best seed: verify-ranked, fitness as tiebreaker
+            # (and as the rank when verify is off).
+            seed_rank = torch.where(vscore >= 0, vscore * 100.0 + fits.clamp(min=0.0), fits).reshape(m_n, s_n)
+            pick = torch.arange(m_n, device=depth.device) * s_n + torch.argmax(seed_rank, dim=1)
+            R_out, t_out, fits, vscore = R_out[pick], t_out[pick], fits[pick], vscore[pick]
     return R_out, t_out, fits, vscore
 
 
@@ -380,14 +384,15 @@ def detect_refine_core(
     """
     # The hypotheses are not the box-NMS survivors, so the match skips NMS.
     tid, x, y, score, _ = detect_frame_core(rgb, depth, bank, cfg, threshold, False)
-    order, active = _select_hypotheses(tid, x, y, score, rb.bbox_wh[tid.long()], max_refine)
-    tid_r, x_r, y_r, score_r = (a[order] for a in (tid, x, y, score))
-    vp = verify_pts[None] if verify_pts is not None else None
-    vv = torch.ones(vp.shape[:2], dtype=torch.bool, device=depth.device) if vp is not None else None
-    vc = verify_colors[None] if verify_colors is not None else None
+    with span("select"):
+        order, active = _select_hypotheses(tid, x, y, score, rb.bbox_wh[tid.long()], max_refine)
+        tid_r, x_r, y_r, score_r = (a[order] for a in (tid, x, y, score))
+        vp = verify_pts[None] if verify_pts is not None else None
+        vv = torch.ones(vp.shape[:2], dtype=torch.bool, device=depth.device) if vp is not None else None
+        vc = verify_colors[None] if verify_colors is not None else None
+        of = torch.zeros_like(order)
     R_out, t_out, fits, vscore = _refine_hypotheses(
-        rgb, depth, rb, icp, K, tid_r.long(), x_r, y_r, active, vp, vv, vc,
-        torch.zeros_like(order), verify_tau, verify_color_weight, icp_seeds, seed_step_deg, seed_flip,
+        rgb, depth, rb, icp, K, tid_r.long(), x_r, y_r, active, vp, vv, vc, of, verify_tau, verify_color_weight, icp_seeds, seed_step_deg, seed_flip,
         verify_color_zscore,
     )
     return tid_r, x_r, y_r, score_r, R_out, t_out, fits, vscore, active
@@ -438,11 +443,12 @@ def detect_refine_multiclass_core(
     tid_l, x, y, score, _ = match_multiclass_core(
         [p[0] for p in pyramid], bank, pad_map, tuple(cfg.t_at_level), threshold, cfg.top_k, cfg.nms_iou, False
     )
-    gid_all = torch.gather(pad_map.clamp(min=0).long(), 1, tid_l.long())
-    order, active = _select_hypotheses(tid_l, x, y, score, bank.whs[0][gid_all], max_refine)
-    tid_r, gid, x_r, y_r, score_r = (torch.gather(a, 1, order) for a in (tid_l, gid_all, x, y, score))
-    c_n, r_n = gid.shape
-    cls = torch.arange(c_n, device=depth.device).repeat_interleave(r_n)
+    with span("select"):
+        gid_all = torch.gather(pad_map.clamp(min=0).long(), 1, tid_l.long())
+        order, active = _select_hypotheses(tid_l, x, y, score, bank.whs[0][gid_all], max_refine)
+        tid_r, gid, x_r, y_r, score_r = (torch.gather(a, 1, order) for a in (tid_l, gid_all, x, y, score))
+        c_n, r_n = gid.shape
+        cls = torch.arange(c_n, device=depth.device).repeat_interleave(r_n)
     R_out, t_out, fits, vscore = _refine_hypotheses(
         rgb, depth, rb, icp, K, gid.reshape(-1), x_r.reshape(-1), y_r.reshape(-1), active.reshape(-1),
         verify_pts, verify_valid, verify_colors, cls, verify_tau, verify_color_weight, icp_seeds,
@@ -506,13 +512,17 @@ class FusedPipeline:
         self.verify_color_weight = float(verify_color_weight)
         self.verify_color_zscore = bool(verify_color_zscore)
 
+    @frame_entry
     def __call__(self, rgb, depth, threshold: float):
         """Returns device tensors (tid, x, y, score, R, t_mm, fitness,
         verify, active), each of length ``max_refine``; nothing waits for
         the device after the images are uploaded."""
+        with span("upload"):
+            rgb_t = _image(rgb, torch.uint8, self.device)
+            depth_t = _image(depth, torch.int32, self.device)
         return detect_refine_core(
-            _image(rgb, torch.uint8, self.device),
-            _image(depth, torch.int32, self.device),
+            rgb_t,
+            depth_t,
             self.bank,
             self.det.cfg,
             float(threshold),
@@ -603,13 +613,17 @@ class FusedMultiClassPipeline:
             per_class.append(fields)
         return multiclass_refine_bank_from_numpy(per_class, self.device)
 
+    @frame_entry
     def __call__(self, rgb, depth, threshold: float):
         """Returns (C, R) device tensors (tid_local, x, y, score, R, t_mm,
         fitness, verify, active), rows in ``class_ids`` order; nothing waits
         for the device after the images are uploaded."""
+        with span("upload"):
+            rgb_t = _image(rgb, torch.uint8, self.device)
+            depth_t = _image(depth, torch.int32, self.device)
         return detect_refine_multiclass_core(
-            _image(rgb, torch.uint8, self.device),
-            _image(depth, torch.int32, self.device),
+            rgb_t,
+            depth_t,
             self.mc.bank,
             self.mc.pad_map,
             self.det.cfg,

@@ -38,7 +38,7 @@ from sixdpose_tpu_torch.models.refine import (
     scene_normals,
     verify_poses,
 )
-from sixdpose_tpu_torch.utils.timing import StageTimer
+from sixdpose_tpu_torch.utils.timing import StageTimer, frame_entry, span, stage
 
 # The template infos the fused pipelines read.
 FUSED_FIELDS = ("icp_points", "cam_R_w2c", "cam_t_w2c", "render_bbox")
@@ -195,6 +195,7 @@ class PoseEstimationService:
             all(k in info for k in FUSED_FIELDS) for info in infos
         )
 
+    @stage("seed")
     def _template_render(self, class_id: str, template_id: int, im_size) -> Optional[np.ndarray]:
         key = (class_id, template_id, im_size)
         if key not in self._render_cache:
@@ -326,6 +327,7 @@ class PoseEstimationService:
         self.metrics.count("published", len(kept))
         return kept
 
+    @frame_entry
     def process_frame(self, rgb: np.ndarray, depth: np.ndarray) -> List[PoseEstimate]:
         """Detect -> batched refine -> dedupe for one frame.
 
@@ -467,34 +469,37 @@ class PoseEstimationService:
 
         dev = self.device
         up = lambda a, dtype=np.float32: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)  # noqa: E731
-        K_t = up(self.K)
-        depth_t = up(depth, np.int32)
-        sp = backproject(depth_t, K_t)
-        sn = scene_normals(sp)
-        # Colored ICP when every candidate cloud carries colors.
-        use_color = self.icp.color_weight > 0.0 and rgb is not None and all(c is not None for c in colors)
-        # In-plane seed fan (parity with the fused cores): each candidate
-        # refines from icp_seeds in-plane rotations (last slot a 180-deg
-        # flip when seed_flip) and keeps its best-VERIFIED seed below.
-        s_n = max(1, self.icp_seeds)
-        clouds_a = np.stack(clouds)
-        valids_a = np.stack(valids)
-        init_T_a = up(np.stack(init_Ts))
-        if s_n > 1:
-            init_T_a = _inplane_seed_transforms(init_T_a, up(np.stack(srcs)), s_n, flip=self.seed_flip)
-            clouds_a = np.repeat(clouds_a, s_n, axis=0)
-            valids_a = np.repeat(valids_a, s_n, axis=0)
-        rgb_t = up(rgb, np.uint8) if rgb is not None else None
-        if use_color:
-            col = np.stack(colors).astype(np.float32)
-            chroma = col[..., :2] / np.maximum(col.sum(-1, keepdims=True), 1e-6)
+        # The ICP seeds and the scene maps, on the device: the ``seed`` span
+        # (the fused frame counts them in its ``icp`` span).
+        with span("seed"):
+            K_t = up(self.K)
+            depth_t = up(depth, np.int32)
+            sp = backproject(depth_t, K_t)
+            sn = scene_normals(sp)
+            # Colored ICP when every candidate cloud carries colors.
+            use_color = self.icp.color_weight > 0.0 and rgb is not None and all(c is not None for c in colors)
+            # In-plane seed fan (parity with the fused cores): each candidate
+            # refines from icp_seeds in-plane rotations (last slot a 180-deg
+            # flip when seed_flip) and keeps its best-VERIFIED seed below.
+            s_n = max(1, self.icp_seeds)
+            clouds_a = np.stack(clouds)
+            valids_a = np.stack(valids)
+            init_T_a = up(np.stack(init_Ts))
             if s_n > 1:
-                chroma = np.repeat(chroma, s_n, axis=0)
-            chroma_k = up(chroma)
-            chroma_maps = scene_chroma(rgb_t)
-        else:
-            chroma_k = None
-            chroma_maps = None
+                init_T_a = _inplane_seed_transforms(init_T_a, up(np.stack(srcs)), s_n, flip=self.seed_flip)
+                clouds_a = np.repeat(clouds_a, s_n, axis=0)
+                valids_a = np.repeat(valids_a, s_n, axis=0)
+            rgb_t = up(rgb, np.uint8) if rgb is not None else None
+            if use_color:
+                col = np.stack(colors).astype(np.float32)
+                chroma = col[..., :2] / np.maximum(col.sum(-1, keepdims=True), 1e-6)
+                if s_n > 1:
+                    chroma = np.repeat(chroma, s_n, axis=0)
+                chroma_k = up(chroma)
+                chroma_maps = scene_chroma(rgb_t)
+            else:
+                chroma_k = None
+                chroma_maps = None
         with self.metrics.timer("icp"):
             Ts, fits, _rmse = icp_batch(
                 up(clouds_a),

@@ -1,5 +1,5 @@
-"""Utilities: timing and profiling."""
+"""Utilities: timing, profiling and the program's stage spans."""
 
-from sixdpose_tpu_torch.utils.timing import StageTimer, block, device_trace
+from sixdpose_tpu_torch.utils.timing import StageTimer, frame_entry, span
 
-__all__ = ["StageTimer", "block", "device_trace"]
+__all__ = ["StageTimer", "frame_entry", "span"]

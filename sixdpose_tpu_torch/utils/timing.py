@@ -2,91 +2,106 @@
 
 Port of the JAX package's ``utils/timing.py``: a host wall-clock stage
 timer (the reference's observability is ad-hoc wall-clock prints, test.cpp:
-125-130, Timer_lchf in forest.h:19-36), ``torch.profiler`` traces, and a
-``block`` that waits for the tensors' devices.
+125-130, Timer_lchf in forest.h:19-36), and the program's stage spans on
+``torch.profiler``'s own host timeline.
+
+A span (``span``, ``frame_entry``, each ``StageTimer`` stage) is a
+FUNCTION-scope record-function range named ``sixdpose.<stage>``: a host
+event on the profiler's clock, beside the ops and CUDA calls it encloses,
+with no copy on the card's timeline (``record_function``'s USER_SCOPE ranges
+get one, which a trace reader would count as device work).  Spans are on
+exactly while a ``torch.profiler`` profile records, and cost one global read
+otherwise.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import statistics
+import threading
 import time
 from typing import Dict
 
 import torch
+import torch.autograd.profiler as _profiler
+
+SPAN_PREFIX = "sixdpose."
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """The stage span ``sixdpose.<name>`` around a ``with`` block while the
+    profiler records; the shared no-op context otherwise."""
+    if not _profiler._is_profiler_enabled:
+        return _OFF
+    return torch._C._profiler._RecordFunctionFast(SPAN_PREFIX + name)
+
+
+def stage(name: str):
+    """Decorator: every call of the function is the span ``sixdpose.<name>``."""
+
+    def wrap(fn):
+        @functools.wraps(fn)
+        def staged(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+
+        return staged
+
+    return wrap
+
+
+_frames = threading.local()  # per host thread: whether a frame's entry is open
+
+
+def frame_entry(fn):
+    """Decorator of a frame's entry point: the whole call is the frame's
+    ``sixdpose.frame`` span, the parent of its stage spans.  An entry called
+    inside another (the service's frame calls a pipeline or a matcher) opens
+    no second one."""
+
+    @functools.wraps(fn)
+    def entry(*args, **kwargs):
+        if not _profiler._is_profiler_enabled or getattr(_frames, "open", False):
+            return fn(*args, **kwargs)
+        _frames.open = True
+        try:
+            with span("frame"):
+                return fn(*args, **kwargs)
+        finally:
+            _frames.open = False
+
+    return entry
 
 
 class StageTimer:
-    """Accumulating wall-clock stage timer (Timer_lchf analog).
+    """Accumulating wall-clock stage timer (Timer_lchf analog); each stage
+    is also the span of its name.
 
     >>> timer = StageTimer()
     >>> with timer("match"):
     ...     run_match()
-    >>> timer.report()
+    >>> timer.mean_ms("match")
     """
 
-    def __init__(self, sync=None):
-        """``sync``: optional callable run before each stop (e.g. ``block``
-        on the outputs) so device work is counted."""
+    def __init__(self):
         self.totals: Dict[str, float] = {}
         self.counts: Dict[str, int] = {}
-        self._sync = sync
 
     @contextlib.contextmanager
-    def __call__(self, name: str, result=None):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self._sync is not None and result is not None:
-                self._sync(result)
-            dt = time.perf_counter() - t0
-            self.totals[name] = self.totals.get(name, 0.0) + dt
-            self.counts[name] = self.counts.get(name, 0) + 1
+    def __call__(self, name: str):
+        with span(name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                dt = time.perf_counter() - t0
+                self.totals[name] = self.totals.get(name, 0.0) + dt
+                self.counts[name] = self.counts.get(name, 0) + 1
 
     def mean_ms(self, name: str) -> float:
         return 1000.0 * self.totals[name] / max(self.counts.get(name, 0), 1)
-
-    def report(self) -> str:
-        lines = [
-            f"{name:<24s} {self.mean_ms(name):9.3f} ms x {self.counts[name]}"
-            for name in sorted(self.totals, key=lambda n: -self.totals[n])
-        ]
-        out = "\n".join(lines)
-        print(out)
-        return out
-
-
-@contextlib.contextmanager
-def device_trace(log_dir: str):
-    """``torch.profiler`` trace of the host and, when there is one, the card,
-    written as a Chrome/Perfetto trace into ``log_dir``."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(log_dir)):
-        yield
-
-
-def _tensors(tree):
-    if isinstance(tree, torch.Tensor):
-        yield tree
-    elif isinstance(tree, dict):
-        for v in tree.values():
-            yield from _tensors(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _tensors(v)
-
-
-def block(tree):
-    """Wait until the work producing every tensor in a (nested list, tuple or
-    dict) tree is done on its device (for timing)."""
-    for dev in {t.device for t in _tensors(tree) if t.device.type == "cuda"}:
-        torch.cuda.synchronize(dev)
-    return tree
 
 
 def ms_per_call(fn, reps: int, device) -> float:

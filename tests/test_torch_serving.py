@@ -138,6 +138,42 @@ def test_service_case_matches_jax_golden(golden, case):
         assert all(e.verify >= 0.0 for e in ests)
 
 
+def _case_service(golden, case):
+    if case == "host":
+        return make_service(golden, prefer_fused=False), int(golden["host_scene"])
+    svc = make_service(golden)
+    if case == "multiscale":
+        svc.enable_multiscale(train_depth=float(golden["ms_train_depth"]), num_scales=int(golden["ms_scales"]))
+        return svc, int(golden["ms_scene"])
+    return svc, 0
+
+
+@pytest.mark.parametrize("case", ["fused", "host", "multiscale"])
+def test_stage_timers_are_unchanged_and_traced_under_their_names(golden, case):
+    """Profiling a frame changes neither its estimates nor the service's
+    stage names and counts; every stage is a span of its own name, inside
+    the frame's one ``sixdpose.frame`` span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    plain, scene = _case_service(golden, case)
+    traced, _ = _case_service(golden, case)
+    want = plain.process_frame(golden["rgb"][scene], golden["depth"][scene])
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        got = traced.process_frame(golden["rgb"][scene], golden["depth"][scene])
+    assert [(e.class_id, e.template_id, e.x, e.y, e.fitness, e.verify) for e in got] == \
+        [(e.class_id, e.template_id, e.x, e.y, e.fitness, e.verify) for e in want]
+    snap_p, snap_t = plain.metrics.snapshot(), traced.metrics.snapshot()
+    counts = {n: s["count"] for n, s in snap_t["stages"].items()}
+    assert counts == {n: s["count"] for n, s in snap_p["stages"].items()}
+    assert snap_t["counters"] == snap_p["counters"]
+    stages = {"fused": {"fused_dispatch", "fused_readback"}, "host": {"match", "icp", "verify"}}
+    assert set(counts) == stages.get(case, stages["host"])
+    spans = [e.name for e in prof.events() if e.name.startswith("sixdpose.")]
+    assert spans.count("sixdpose.frame") == 1
+    for name, n in counts.items():
+        assert spans.count(f"sixdpose.{name}") == n, name
+
+
 def test_fused_fallback_is_decided_by_the_infos(golden):
     """A class whose templates lack a fused field takes the host path; a
     complete bank never does."""
