@@ -16,7 +16,7 @@ Drives the port's main paths, and checks every result:
   RGB-D, ``t_at_level=(4, 8)``, top_k 128, 96 hypotheses per class, 4
   seeds, 20 ICP iterations, drawn by ``synthetic.multiclass_workload``):
   the multi-class match (``MultiClassMatcher``, whose coarse level, at
-  2.7e10 multiply-adds, takes the shift-bucketed matmul scorer) and the
+  2.7e10 multiply-adds, takes the feature-list coarse scorer) and the
   fused multi-class frame (``FusedMultiClassPipeline``: 3456 ICP
   candidates);
 - at the full width of the JAX package's multi-scale sweep
@@ -72,11 +72,13 @@ non-zero:
 4. match_mc: ``MultiClassMatcher`` on the multi-class workload at 55 and
    at 30 (every class fills its 128 candidates: a pool of 1152 in one
    refine launch), launch counts set to 0 just before and read just after;
-   the coarse branch taken and its multiply-adds; equal to the CPU run;
+   the coarse branch taken and its multiply-adds, one coarse-kernel launch
+   per feature-list coarse call; equal to the CPU run;
 5. match_ms: ``MultiScaleMultiClass`` on the multi-scale workload at 70 and
    at 30 (every class fills its 128 candidates: a scaled pool of 1920 in
    one refine launch), and ``MultiScaleDetector`` on every class, launch
-   counts set to 0 just before and read just after; equal to the CPU run,
+   counts set to 0 just before and read just after (one coarse-kernel
+   launch a frame); equal to the CPU run,
    each class's row equals ``MultiScaleDetector``'s, at least 3 valid
    proposals and one empty, and one frame under
    ``set_sync_debug_mode("error")``;
@@ -85,11 +87,18 @@ non-zero:
    levelup maximum F = 8191 and at F = 9000 (two table passes), and at the
    inputs the main paths gave it (bench B=1 and B=4, the multi-class pool,
    the scaled multi-scale pool);
-7. coarse_matmul: the matmul scorer on the card against its CPU run and
-   against the dense conv of kernels built from the same features, at the
+7. coarse_matmul: the coarse scorer on the card (the coarse-scorer
+   kernel) against the CPU's matmul route and against the dense conv of
+   kernels built from the same features, at the
    full-width bank (scale 1, and four scales one of them 0), and at the
    LINEMOD-scale VGA call (15 x 337 templates, about 2e11 multiply-adds;
    against the conv on the card only);
+7b. coarse_score: the coarse-scorer kernel (``csrc/coarse_score.cu``) at
+   the T-LESS and LINEMOD benchmark deployments' coarse calls
+   (``synthetic.coarse_scorer_call``): equal to the card's matmul route and
+   to its plain gather-sum, raw and counts; its time replayed from CUDA
+   graphs and launched from Python, beside the bound, the plain version's
+   time and that of the per-bucket ``addmm`` route it replaces;
 8. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
 9. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
@@ -111,7 +120,8 @@ non-zero:
    bit, its infos exactly; save and restore seconds, bytes on disk), and
    the restored bank is the one ``synth`` serves;
 12. refine_mc: as refine_vga, for ``FusedMultiClassPipeline`` on the multi-class
-   workload at 55 and 30 (96 active hypotheses per class); its CPU run (about
+   workload at 55 and 30 (96 active hypotheses per class), one coarse-kernel
+   launch a frame; its CPU run (about
    20 s a frame) goes on in a spawned worker beside the golden phases that
    follow (13 and 14), which report no time, and the phase's line follows
    ``synth_golden``'s;
@@ -224,7 +234,7 @@ non-zero:
    same function.  Under ``multiclass``: the multi-class match frame and
    the fused multi-class frame (whole and by stage, with bounds), the
    kernel at the multi-class call (and one grouped conv there), and the
-   matmul scorer at full width and at the LINEMOD-scale call beside its
+   coarse scorer at full width and at the LINEMOD-scale call beside its
    bound, the dense conv and the same product as one ``torch.matmul``.
    Under ``multiscale``: the one-pass frame and the single-class frame,
    whole and by stage (pyramid, proposals, coarse sweep, selection, refine,
@@ -244,8 +254,10 @@ non-zero:
    JAX code they take the place of), its launches in the main paths'
    phases (in all and per phase, ``synth_golden``, ``synth``, ``lchf``,
    ``seg``, ``parallel`` (summed over every card rank), ``tools`` and
-   ``bench`` (the twin's process) among them), its error against the plain
-   version, and its time
+   ``bench`` (the twin's process) among them; the coarse kernel's counted
+   in this process alone, with every launch checked against a feature-list
+   coarse call and ``dense_route``'s required to be 0, the timing loops
+   left out), its error against the plain version, and its time
    beside the plain version's, the library call's and the bound (the
    refine kernel at the bench B=1 call, the multi-class call and the
    multi-scale call; the seg kernels at the bin-picking frame's inputs,
@@ -258,7 +270,8 @@ the script prints no result and exits 2.  ``python3 chip_smoke.py
 parallel`` runs env, build and the ``parallel`` phase only, then, with two
 or more cards, ``tools.bench_scaling``'s sweep over them (one line
 ``scaling``): on a host with four cards every rank has a card of its own
-and the ranks talk over NCCL.
+and the ranks talk over NCCL.  ``python3 chip_smoke.py coarse_score`` runs
+env, build and the ``coarse_score`` phase only.
 """
 
 from __future__ import annotations
@@ -322,11 +335,11 @@ from sixdpose_tpu_torch.models.multiscale import MultiScaleDetector, MultiScaleM
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline, FusedPipeline
 from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import _build
+from sixdpose_tpu_torch.ops import coarse_score as CS
 from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops import segment_sum as SS
-from sixdpose_tpu_torch.ops import similarity as S
 from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
     _bucket_slices,
@@ -342,7 +355,9 @@ from sixdpose_tpu_torch.ops.similarity import (
     similarity_dense_pre_s2d,
     similarity_local,
     similarity_local_sparse,
+    similarity_multiscale_auto,
     similarity_multiscale_matmul,
+    similarity_multiscale_sparse,
 )
 from sixdpose_tpu_torch.seg import DaspConfig as SegConfig
 from sixdpose_tpu_torch.seg import convex_cloud_seg as seg_convex_cloud_seg
@@ -435,6 +450,37 @@ def ptxas_summary(log: str) -> list:
 def sm_clock_mhz() -> str:
     return subprocess.run(["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm", "--format=csv,noheader"],
                           capture_output=True, text=True).stdout.strip()
+
+
+# Coarse-kernel launches of each phase that drives a feature-list coarse
+# path (``counting_coarse_calls``); the kernels line reports their sum.
+COARSE_BY_PHASE: dict = {}
+
+
+@contextmanager
+def counting_coarse_calls(phase: str):
+    """Set the coarse kernel's launch count to 0, record every feature-list
+    coarse call the main path makes on card tensors (at the dispatch of
+    ``coarse_scores`` and ``coarse_sweep``), and on leaving check one
+    launch per such call and keep the count under ``phase`` in
+    ``COARSE_BY_PHASE``.  Yields the list of calls ((maps shape, rows))."""
+    calls: list = []
+    original = similarity_multiscale_auto
+
+    def counting(maps, feats, valid, scales, *rest):
+        if maps.is_cuda and feats.shape[0] * scales.numel() > 0:
+            calls.append((tuple(maps.shape), feats.shape[0] * scales.numel()))
+        return original(maps, feats, valid, scales, *rest)
+
+    CS.similarity_multiscale_cuda.launches = 0
+    D.similarity_multiscale_auto = M.similarity_multiscale_auto = counting
+    try:
+        yield calls
+    finally:
+        D.similarity_multiscale_auto = M.similarity_multiscale_auto = original
+    launches = CS.similarity_multiscale_cuda.launches
+    check(launches == len(calls), f"{phase}: {launches} coarse-kernel launches for {len(calls)} feature-list coarse calls")
+    COARSE_BY_PHASE[phase] = launches
 
 
 @contextmanager
@@ -697,23 +743,12 @@ def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
     the port's CPU run everywhere."""
     t0 = time.perf_counter()
     calls: list = []
-    matmul_calls = []
-    original = D.similarity_multiscale_matmul
-
-    def counting(*args):
-        matmul_calls.append(args[4:])
-        return original(*args)
-
     thresholds = (w["threshold"], LOW_THRESHOLD)
     LR.similarity_local_sparse_cuda.launches = 0
-    D.similarity_multiscale_matmul = counting
-    try:
-        with recording_refine_calls(calls):
-            gpu = {thr: mc.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
-            matches = {thr: mc.match(w["rgb"], w["depth"], thr) for thr in thresholds}
-            torch.cuda.synchronize()
-    finally:
-        D.similarity_multiscale_matmul = original
+    with counting_coarse_calls("match_mc") as coarse_calls, recording_refine_calls(calls):
+        gpu = {thr: mc.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
+        matches = {thr: mc.match(w["rgb"], w["depth"], thr) for thr in thresholds}
+        torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == len(calls) == 2 * len(thresholds) and launches > 0, f"refine launches {launches} for {len(calls)} calls")
     kern = mc.bank.kernels[-1]
@@ -721,8 +756,8 @@ def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
     maps_shape = (16,) + tuple(s >> coarse for s in w["rgb"].shape[:2])
     macs = D.coarse_macs(maps_shape, kern.shape, w["cfg"].t_at_level[-1])
     branch = "matmul" if macs > D._MATMUL_MACS else "dense"
-    check(len(matmul_calls) == (2 * len(thresholds) if branch == "matmul" else 0),
-          f"coarse branch {branch} at {macs} MACs, {len(matmul_calls)} matmul scorer calls")
+    check(len(coarse_calls) == (2 * len(thresholds) if branch == "matmul" else 0),
+          f"coarse branch {branch} at {macs} MACs, {len(coarse_calls)} feature-list coarse calls")
     cpu = {thr: mc_cpu.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
     for thr in thresholds:
         check(all(torch.equal(g.cpu(), c) for g, c in zip(gpu[thr], cpu[thr])),
@@ -731,21 +766,20 @@ def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
     check(min(live[str(LOW_THRESHOLD)]) == w["cfg"].top_k, f"not every class fills its candidates at {LOW_THRESHOLD}: {live}")
     emit("match_mc", t0, setup_seconds=round(setup_s, 3), classes=len(mc.class_ids), templates=int(mc.bank.nfeats[0].numel()),
          frame=list(w["rgb"].shape), coarse_branch=branch, coarse_conv_macs=macs, macs_line=D._MATMUL_MACS,
-         launches=launches, live_into_kernel=[int(c["active"].sum()) for c in calls],
+         launches=launches, coarse_launches=COARSE_BY_PHASE["match_mc"], live_into_kernel=[int(c["active"].sum()) for c in calls],
          kernel_call={"maps": list(calls[-1]["maps"].shape), "feats": list(calls[-1]["feats"].shape), "t": calls[-1]["t"]},
          thresholds=list(thresholds), live_per_class=live, matches={str(t): len(m) for t, m in matches.items()},
          gpu_equals_cpu=True)
     return calls, launches
 
 
-def scorer_bound(maps, feats, nfeat, ho_wo: int) -> dict:
-    """Least bytes and operations of one call of the matmul scorer on these
+def scorer_bound(maps, feats, nfeat, ho_wo: int, n_scales: int = 1) -> dict:
+    """Least bytes and operations of one call of the coarse scorer on these
     inputs: the maps, feature lists, masks and scales read once, the raw
-    scores and counts written once; one add per valid feature and placement
-    (the sparse product this data needs).  Also the float32 floor of the
-    dense per-bucket matmuls it runs instead (``dense_matmul_floor_ms``)."""
+    scores and counts written once; one add per counted feature and
+    placement (the sparse product this data needs)."""
     sn = nfeat.numel()
-    nbytes = maps.numel() + feats.numel() * 4 + feats.shape[0] * feats.shape[1] + 4 + sn * (ho_wo * 4 + 4)
+    nbytes = maps.numel() + feats.numel() * 4 + feats.shape[0] * feats.shape[1] + 4 * n_scales + sn * (ho_wo * 4 + 4)
     ops = int(nfeat.sum()) * ho_wo
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / FP32_OPS_PER_S * 1e3
     return {"bytes": nbytes, "ops": ops, "bound_ms": max(t_bytes, t_ops),
@@ -753,13 +787,14 @@ def scorer_bound(maps, feats, nfeat, ho_wo: int) -> dict:
 
 
 def time_scorer(maps, feats, valid, kern, t: int) -> dict:
-    """The matmul scorer at scale 1 on one call's inputs (CUDA events over
-    whole eager calls), beside its bound, the dense conv it stands in for,
-    and the same product as one ``torch.matmul`` (W as one (S*N, bh*ct2)
-    matrix against the stacked bucket slices)."""
+    """The coarse scorer at scale 1 on one call's inputs (CUDA events over
+    whole eager calls): the coarse-scorer kernel, beside its bound, the
+    dense conv it stands in for below ``_MATMUL_MACS``, and the same product
+    as one ``torch.matmul`` (W as one (S*N, bh*ct2) matrix against the
+    stacked bucket slices)."""
     kh, kw = kern.shape[-2:]
     one = torch.ones((1,), dtype=torch.float32, device=maps.device)
-    raw, nf = similarity_multiscale_matmul(maps, feats, valid, one, t, kh, kw)
+    raw, nf = similarity_multiscale_auto(maps, feats, valid, one, t, kh, kw)
     khb, kwb = -(-kh // t), -(-kw // t)
     s2d = _s2d_maps(maps[None], t)
     slices = _bucket_slices(s2d, khb, kwb)
@@ -773,7 +808,7 @@ def time_scorer(maps, feats, valid, kern, t: int) -> dict:
     return {
         "maps": list(maps.shape), "templates": int(feats.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
         "buckets": bh, "w_bytes": w.numel() * 4,
-        "scorer_ms": cuda_ms(lambda: similarity_multiscale_matmul(maps, feats, valid, one, t, kh, kw), reps=10),
+        "scorer_ms": cuda_ms(lambda: similarity_multiscale_auto(maps, feats, valid, one, t, kh, kw), reps=10),
         "dense_conv_ms": cuda_ms(lambda: similarity_dense(maps, kern, t), reps=10),
         "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=10),
         "bound": bound,
@@ -800,10 +835,10 @@ def linemod_scale_case(dev, n: int = 15 * 337):
 
 
 def phase_coarse_matmul(dev, w, mc, mc_cpu):
-    """The matmul scorer on the card against its CPU run and against the
-    dense conv of kernels built from the same features: at the full-width
-    bank (scale 1, and four scales one of them 0, which takes two row
-    chunks of W), and at the LINEMOD-scale VGA call (card only)."""
+    """The coarse scorer on the card (the coarse-scorer kernel) against the
+    CPU's matmul route and against the dense conv of kernels built from the
+    same features: at the full-width bank (scale 1, and four scales one of
+    them 0), and at the LINEMOD-scale VGA call (card only)."""
     t0 = time.perf_counter()
     maps = mc.response_pyramid(w["rgb"], w["depth"])[-1]
     t_c = w["cfg"].t_at_level[-1]
@@ -812,27 +847,77 @@ def phase_coarse_matmul(dev, w, mc, mc_cpu):
     results = {}
     for name, scales in (("full_width_scale1", [1.0]), ("full_width_4_scales", [0.8, 1.0, 0.0, 1.2])):
         sc = torch.tensor(scales, dtype=torch.float32)
-        g = similarity_multiscale_matmul(maps, feats, valid, sc.to(dev), t_c, kh, kw)
+        g = similarity_multiscale_auto(maps, feats, valid, sc.to(dev), t_c, kh, kw)
         c = similarity_multiscale_matmul(maps.cpu(), mc_cpu.bank.feats[-1], mc_cpu.bank.valids[-1], sc, t_c, kh, kw)
-        check(torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1]), f"matmul scorer GPU differs from CPU ({name})")
+        check(torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1]), f"coarse scorer GPU differs from CPU ({name})")
         n = feats.shape[0]
         i1 = scales.index(1.0) * n
         dense = similarity_dense(maps, kern, t_c)
-        check(torch.equal(g[0][i1 : i1 + n], dense), f"matmul scorer differs from the dense conv at scale 1 ({name})")
+        check(torch.equal(g[0][i1 : i1 + n], dense), f"coarse scorer differs from the dense conv at scale 1 ({name})")
         if 0.0 in scales:
             i0 = scales.index(0.0) * n
             check(not g[0][i0 : i0 + n].any() and not g[1][i0 : i0 + n].any(), "scale 0 scored something")
-        chunk_rows = S._W_CHUNK_BYTES // (-(-kh // t_c) * -(-kw // t_c) * maps.shape[0] * t_c * t_c * 4)
-        results[name] = {"raw": list(g[0].shape), "w_chunks": -(-g[0].shape[0] // chunk_rows), "gpu_equals_cpu": True,
-                         "scale1_equals_dense": True}
+        results[name] = {"raw": list(g[0].shape), "gpu_equals_cpu": True, "scale1_equals_dense": True}
     lm_maps, lm_feats, lm_valid, lm_kern = linemod_scale_case(dev)
-    lm = similarity_multiscale_matmul(lm_maps, lm_feats, lm_valid, torch.ones(1, device=dev), 8, *lm_kern.shape[-2:])
-    check(torch.equal(lm[0], similarity_dense(lm_maps, lm_kern, 8)), "LINEMOD-scale matmul scorer differs from the dense conv")
+    lm = similarity_multiscale_auto(lm_maps, lm_feats, lm_valid, torch.ones(1, device=dev), 8, *lm_kern.shape[-2:])
+    check(torch.equal(lm[0], similarity_dense(lm_maps, lm_kern, 8)), "LINEMOD-scale coarse scorer differs from the dense conv")
     macs = D.coarse_macs(lm_maps.shape, lm_kern.shape, 8)
     results["linemod_15x337_vga_scale1"] = {"raw": list(lm[0].shape), "coarse_conv_macs": macs, "equals_dense": True}
     torch.cuda.synchronize()
     emit("coarse_matmul", t0, tolerance="exact (integer sums in float32)", cases=results)
     return (maps, feats, valid, kern, t_c), (lm_maps, lm_feats, lm_valid, lm_kern, 8)
+
+
+
+def time_coarse(dev, deployment: str) -> dict:
+    """The coarse-scorer kernel at a benchmark deployment's coarse call
+    (``synthetic.coarse_scorer_call``): equal to the card's matmul route
+    and to the plain gather-sum, raw and counts; then its time replayed
+    from a CUDA graph (20 calls a window) and launched from Python, beside
+    the bound, the plain version's time and that of the per-bucket
+    ``addmm`` route it replaces (``similarity_multiscale_matmul``, one call
+    a window, replayed from a CUDA graph too)."""
+    call = synthetic.coarse_scorer_call(deployment)
+    args = [torch.from_numpy(a).to(dev) for a in call[:4]] + list(call[4:])
+    kernel = lambda: CS.similarity_multiscale_cuda(*args)  # noqa: E731
+    raw, nf = kernel()
+    for name, fn in (("matmul route", similarity_multiscale_matmul), ("plain gather-sum", similarity_multiscale_sparse)):
+        want = fn(*args)
+        check(torch.equal(raw, want[0]) and torch.equal(nf, want[1]), f"coarse kernel differs from the {name} ({deployment})")
+        del want
+    p = raw.shape[-2] * raw.shape[-1]
+    bound = scorer_bound(args[0], args[1], nf, p, n_scales=args[3].numel())
+    kern_ms = graph_ms(kernel, reps=7, inner=20)
+    out = {
+        "maps": list(args[0].shape), "rows": int(raw.shape[0]), "F": int(args[1].shape[1]), "scales": args[3].tolist(),
+        "kernel": list(call[5:]), "t": call[4], "placements": p, "lookups": int(nf.sum()) * p,
+        "kernel_ms": kern_ms,
+        "kernel_eager_ms": cuda_ms(kernel, reps=7, inner=20),
+        "plain_ms": graph_ms(lambda: similarity_multiscale_sparse(*args), reps=3, inner=1),
+        "library_ms": graph_ms(lambda: similarity_multiscale_matmul(*args), reps=3, inner=1),
+        "bound": bound,
+    }
+    out["lookups_per_ns"] = out["lookups"] / (kern_ms * 1e6)
+    out["times_bound"] = kern_ms / bound["bound_ms"]
+    del raw, nf, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_coarse_score(dev) -> dict:
+    """The coarse-scorer kernel at the T-LESS and LINEMOD deployments'
+    coarse calls (``time_coarse``), with its launches over the phase."""
+    t0 = time.perf_counter()
+    CS.similarity_multiscale_cuda.launches = 0
+    cases = {name: time_coarse(dev, name) for name in ("tless", "linemod")}
+    torch.cuda.synchronize()
+    emit("coarse_score", t0, nvidia_smi=nvidia_smi(), tolerance="exact (integer sums in float32)", cases=cases,
+         launches=CS.similarity_multiscale_cuda.launches,
+         method=("CUDA events, medians: kernel_ms 7 windows of 20 calls replayed from one CUDA graph (warm L2); "
+                 "kernel_eager_ms the same 20 calls issued from Python; plain_ms and library_ms 3 windows of one "
+                 "call replayed from a CUDA graph; bound: bytes once each over 3.35 TB/s against one add per counted "
+                 "feature and placement at 67 TFLOP/s"))
+    return cases
 
 
 def refine_mc_cpu(thresholds) -> dict:
@@ -863,16 +948,20 @@ def phase_refine_mc(dev, w, pipe):
     thresholds = (w["threshold"], LOW_THRESHOLD)
     rgb, dep = torch.from_numpy(w["rgb"]).to(dev), torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
     LR.similarity_local_sparse_cuda.launches = 0
-    gpu = {thr: pipe(rgb, dep, thr) for thr in thresholds}
-    torch.cuda.synchronize()
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        unsynced = pipe(rgb, dep, LOW_THRESHOLD)
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+    with counting_coarse_calls("refine_mc") as coarse_calls:
+        gpu = {thr: pipe(rgb, dep, thr) for thr in thresholds}
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            unsynced = pipe(rgb, dep, LOW_THRESHOLD)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == len(thresholds) + 1, f"{launches} refine kernel launches in {len(thresholds) + 1} frames")
+    # The full-width bank's coarse level is above _MATMUL_MACS (match_mc): one feature-list call a frame.
+    check(len(coarse_calls) == len(thresholds) + 1, f"{len(coarse_calls)} feature-list coarse calls in "
+          f"{len(thresholds) + 1} frames")
     gpu_s = time.perf_counter() - t0
     pool = ProcessPoolExecutor(max_workers=1, mp_context=multiprocessing.get_context("spawn"))
     cpu_run = pool.submit(refine_mc_cpu, thresholds)
@@ -899,7 +988,7 @@ def finish_refine_mc(p: dict) -> int:
     rerun = fused_diff(flat_classes(p["unsynced"]), flat_classes(gpu[LOW_THRESHOLD]), n_pts, n_ver)
     check(rerun["bitwise"], "a second GPU run of the same frame differs")
     c_n = len(p["pipe"].class_ids)
-    emit("refine_mc", p["t0"], launches=p["launches"], thresholds=list(thresholds),
+    emit("refine_mc", p["t0"], launches=p["launches"], coarse_launches=COARSE_BY_PHASE["refine_mc"], thresholds=list(thresholds),
          icp_candidates=c_n * w["max_refine"] * w["icp_seeds"], active_per_class=active, gpu_vs_cpu=diffs,
          tolerance=FUSED_TOL, sync_free_frame=True, rerun_bitwise_equal=True, gpu_seconds_3_frames=p["gpu_s"],
          cpu_seconds_per_frame=sum(t for _, t in cpu.values()) / len(thresholds),
@@ -997,7 +1086,7 @@ def phase_match_ms(dev, w, ms, setup_s: float):
     rgb_t, dep_t = torch.from_numpy(rgb).to(dev), torch.from_numpy(dep.astype(np.int32)).to(dev)
     calls: list = []
     LR.similarity_local_sparse_cuda.launches = 0
-    with recording_refine_calls(calls):
+    with counting_coarse_calls("match_ms") as coarse_calls, recording_refine_calls(calls):
         gpu = {thr: mc.match_arrays(rgb, dep, thr) for thr in thresholds}
         per_class = {thr: {cid: single.match_arrays(rgb, dep, thr, cid) for cid in cids} for thr in thresholds}
         matches = {thr: mc.match(rgb, dep, thr) for thr in thresholds}
@@ -1012,6 +1101,8 @@ def phase_match_ms(dev, w, ms, setup_s: float):
     levels_below = len(w["cfg"].t_at_level) - 1
     frames = len(thresholds) + len(thresholds) * len(cids) + len(thresholds) + 1
     check(launches == len(calls) == frames * levels_below, f"{launches} refine launches, {len(calls)} calls, {frames} frames")
+    # One coarse sweep a frame, every one on the coarse kernel.
+    check(len(coarse_calls) == frames, f"{len(coarse_calls)} feature-list coarse calls in {frames} frames")
     check(all(c["scale"] is not None for c in calls), "a multi-scale refine call without scales")
     # The one-pass calls (K = classes x top_k) in order: match_arrays() at
     # each threshold, match() at each, the sync-free frame.
@@ -1048,7 +1139,7 @@ def phase_match_ms(dev, w, ms, setup_s: float):
          proposals={"bin": bin_idx.tolist(), "depth_mm": depths.tolist(), "pixels": counts.tolist(),
                     "scale": [float(v) for v in mc.bin_scales[bin_idx.long()].cpu() * (counts.cpu() > 0)]},
          coarse_kernel=list(mc.bank.kdims[-1]), pad_kb=list(mc.bank.pad_kb),
-         launches=launches, frames=frames, live_into_pool_calls=live_in,
+         launches=launches, coarse_launches=COARSE_BY_PHASE["match_ms"], frames=frames, live_into_pool_calls=live_in,
          kernel_call={"maps": list(low_pool[0]["maps"].shape), "feats": list(low_pool[0]["feats"].shape),
                       "t": low_pool[0]["t"], "scaled": True},
          thresholds=list(thresholds), live_per_class=live, matches={str(t): len(m) for t, m in matches.items()},
@@ -1092,25 +1183,26 @@ def ms_stage_events(marks: list):
     """Events at the stage boundaries of the multi-scale cores: after the
     pyramid, after the proposals, after the coarse sweep, before and after
     the refinement (``MS_STAGES``)."""
-    return wrapped_stages(M, marks, {"frame_response_pyramid": (False, True), "proposals": (False, True),
+    return wrapped_stages(M, marks, {"_build_response_pyramid": (False, True), "proposals": (False, True),
                                      "coarse_sweep": (False, True), "pyramid_refine": (True, True)})
 
 
 def time_sweep(mc, rgb_t, dep_t, cfg) -> dict:
     """The full-width frame's coarse sweep (15 x 337 templates at 5
-    proposals) beside its bound, the same product as one
-    ``torch.matmul`` and the dense conv of ``build_kernels_scaled`` kernels
-    (CUDA events over whole eager calls; each checked against the sweep)."""
+    proposals, the coarse-scorer kernel) beside its bound, the same product
+    as one ``torch.matmul`` and the dense conv of ``build_kernels_scaled``
+    kernels (CUDA events over whole eager calls; each checked against the
+    sweep)."""
     t = cfg.t_at_level[-1]
-    pyr = M.frame_response_pyramid(rgb_t, dep_t, cfg, rgb_t.device)
+    pyr = D.frame_response_pyramid(rgb_t, dep_t, cfg, rgb_t.device)
     _, _, valid, scales = M.proposals(dep_t, mc.bin_scales, mc.num_scales, mc.bins)
     pb, qb = mc.bank.pad_kb
     maps = torch.nn.functional.pad(pyr[-1], (0, qb * t, 0, pb * t))
     feats, valid_f = mc.bank.feats[-1], mc.bank.valids[-1]
     kh, kw = mc.bank.kdims[-1]
     khb, kwb = -(-kh // t), -(-kw // t)
-    scatter = lambda: similarity_multiscale_matmul(maps, feats, valid_f, scales, t, kh, kw)  # noqa: E731
-    raw, nf = scatter()
+    scorer = lambda: similarity_multiscale_auto(maps, feats, valid_f, scales, t, kh, kw)  # noqa: E731
+    raw, nf = scorer()
     rows_ok = valid[:, None].expand(len(scales), feats.shape[0]).reshape(-1)
     slices = _bucket_slices(_s2d_maps(maps[None], t), khb, kwb)
     bh, ct2, p = slices.shape
@@ -1121,7 +1213,7 @@ def time_sweep(mc, rgb_t, dep_t, cfg) -> dict:
     out = {
         "maps": list(maps.shape), "rows": int(raw.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
         "buckets": bh, "placements": p, "w_bytes_float32": lhs.numel() * 4,
-        "scatter_ms": cuda_ms(scatter, reps=5),
+        "scorer_ms": cuda_ms(scorer, reps=5),
         "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=5),
         "bound": scorer_bound(maps, feats, nf, p),
     }
@@ -1425,7 +1517,7 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     """CUDA-event medians of the full-width multi-class match frame and of
     the fused multi-class frame (whole, and split by stage) at 55 and
     LOW_THRESHOLD, beside per-frame bounds of the scene maps and ICP; the
-    kernel at the multi-class call; the matmul scorer at full width and at
+    kernel at the multi-class call; the coarse scorer at full width and at
     the LINEMOD-scale call."""
     rgb = torch.from_numpy(w["rgb"]).to(dev)
     dep = torch.from_numpy(w["depth"].astype(np.int32)).to(dev)
@@ -1445,7 +1537,7 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     out["icp_candidates"] = k
     out["refine_kernel_K1152"] = time_refine(mc_call)
     out["refine_kernel_K1152"]["library_grouped_conv_ms"] = time_refine_library(mc_call, *mc.bank.kernels[0].shape[-2:])
-    out["matmul_scorer"] = {"full_width": time_scorer(*full_case), "linemod_15x337_vga": time_scorer(*lm_case)}
+    out["coarse_scorer"] = {"full_width": time_scorer(*full_case), "linemod_15x337_vga": time_scorer(*lm_case)}
     return out
 
 
@@ -1496,7 +1588,7 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
                 "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
                 "main path; kernel_eager_ms: the same 100 launches issued from Python; multiclass: match frame 10, "
-                "fused frame and its stage split 5 whole eager calls, matmul scorer, dense conv and one matmul 10 "
+                "fused frame and its stage split 5 whole eager calls, coarse scorer, dense conv and one matmul 10 "
                 "eager calls, grouped conv at K=1152 1 call replayed from one CUDA graph; multiscale: frames and their "
                 "stage split 5 whole eager calls, coarse sweep and one matmul 5 eager calls, dense conv 3, kernel as "
                 "refine, grouped conv 1 call replayed from one CUDA graph; synth: the service's host stage means over "
@@ -3351,6 +3443,12 @@ def main() -> int:
     emit("build", t0, kernels={n: {"seconds": round(b["seconds"], 3), "ptxas": ptxas[n]} for n, b in built.items()})
     if sys.argv[1:] == ["parallel"]:
         return parallel_only(dev, smi)
+    if sys.argv[1:] == ["coarse_score"]:
+        phase_coarse_score(dev)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return 0
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
     calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
@@ -3360,6 +3458,7 @@ def main() -> int:
     ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
     max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls, ms_call)
     full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
+    coarse_cases = phase_coarse_score(dev)
     phase_match_golden(dev)
     launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
     render_ms = phase_render(dev)
@@ -3370,18 +3469,26 @@ def main() -> int:
         phase_refine_golden(dev)
         phase_mc_golden(dev)
         phase_ms_golden(dev)
-        golden_launches = phase_synth_golden(dev)
+        with counting_coarse_calls("synth_golden"):
+            golden_launches = phase_synth_golden(dev)
         mc_refine_launches = finish_refine_mc(refine_mc)
-        synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
+        with counting_coarse_calls("synth"):
+            synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
     lchf_launches, _ = phase_lchf(dev)
     check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
     seg_launches, seg_kernels = phase_seg(dev)
     t0 = time.perf_counter()
     emit("seg_golden", t0, **phase_seg_golden(dev))
-    parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
-    tools = phase_tools(dev)
-    bench_launches = phase_bench(dev, cid, det, det_cpu)
-    dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
+    with counting_coarse_calls("parallel"):
+        parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
+    with counting_coarse_calls("tools"):
+        tools = phase_tools(dev)
+    with counting_coarse_calls("bench"):
+        bench_launches = phase_bench(dev, cid, det, det_cpu)
+    with counting_coarse_calls("dense_route"):
+        dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
+    check(COARSE_BY_PHASE["dense_route"] == 0, f"the bank without feature lists launched the coarse kernel "
+          f"{COARSE_BY_PHASE['dense_route']} times")
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -3453,7 +3560,21 @@ def main() -> int:
         "at": {k: v for k, v in seg_kernels[name].items()
                if k not in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "split_ms",
                             "chain_bound_ms")},
-    } for name in ("segment_sum", "floyd_steinberg")]}), flush=True)
+    } for name in ("segment_sum", "floyd_steinberg")] + [{
+        "name": "coarse_score",
+        "route": "cuda",
+        "source": "sixdpose_tpu_torch/csrc/coarse_score.cu",
+        "replaces": "no TPU kernel: the JAX package's XLA matmuls of similarity_multiscale_matmul "
+                    "(sixdpose_tpu/ops/similarity.py), which the port ran as one addmm per shift bucket",
+        "launches": sum(COARSE_BY_PHASE.values()),
+        "launches_by_phase": COARSE_BY_PHASE,
+        "exact_vs_plain": True,
+        **{k: coarse_cases["tless"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+        "bound_ms": coarse_cases["tless"]["bound"]["bound_ms"],
+        "bound_by": coarse_cases["tless"]["bound"]["bound_by"],
+        "ptxas": ptxas["coarse_score"],
+        "at_linemod_call": {k: coarse_cases["linemod"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+    }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -5,8 +5,8 @@ linemodLevelup.cpp:1663-2010):
 
 - quantize each modality per pyramid level, spread, build response maps;
 - score every template of a class at every stride-T placement of the
-  coarsest level with one dense correlation, or for large banks with
-  shift-bucketed matmuls (``coarse_scores``);
+  coarsest level with one dense correlation, or for large banks with the
+  feature-list scorer (``coarse_scores``);
 - keep a fixed top-K above the threshold (cpp:1836-1852) and re-score each
   candidate over a 16x16 placement window on the way down the pyramid
   (cpp:1854-1938) with the local-refine kernel;
@@ -38,14 +38,15 @@ from sixdpose_tpu_torch.ops.similarity import (
     similarity_dense,
     similarity_local,
     similarity_local_sparse_auto,
-    similarity_multiscale_matmul,
+    similarity_multiscale_auto,
 )
 from sixdpose_tpu_torch.ops.spread import compute_response_maps, spread_orientations
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
 from sixdpose_tpu_torch.utils.timing import frame_entry, span, stage
 
-# Dense-conv size (multiply-adds) above which the coarse level is scored with
-# shift-bucketed matmuls (similarity_multiscale_matmul), as in the JAX package.
+# Dense-conv size (multiply-adds) above which the coarse level is scored over
+# the feature lists (similarity_multiscale_auto), as in the JAX package (a
+# line set on the TPU for its shift-bucketed matmuls).
 _MATMUL_MACS = 2e10
 
 
@@ -76,8 +77,8 @@ def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...]
     """Scoring at the coarsest level (cpp:1820-1852), adapted to the bank's
     size as in the JAX package: the dense conv (``similarity_dense``) up to
     ``_MATMUL_MACS`` multiply-adds, and above it, when the feature lists are
-    given, the shift-bucketed matmuls of ``similarity_multiscale_matmul``
-    at scale 1 (the same integers).
+    given, ``similarity_multiscale_auto`` at scale 1 (the same integers: the
+    gather-sum kernel on the card, the shift-bucketed matmuls on the CPU).
 
     Returns ([B,] N, hb, wb) float32 normalized scores; -1 marks templates
     without a feature inside the kernel (matmul branch).
@@ -87,7 +88,7 @@ def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...]
     maps, kern = response_pyramid[coarse], kernels[coarse]
     if feats is not None and coarse_macs(maps.shape, kern.shape, t_c) > _MATMUL_MACS:
         one = torch.ones((1,), dtype=torch.float32, device=maps.device)
-        raw, nf = similarity_multiscale_matmul(maps, feats[coarse], valids[coarse], one, t_c, *kern.shape[-2:])
+        raw, nf = similarity_multiscale_auto(maps, feats[coarse], valids[coarse], one, t_c, *kern.shape[-2:])
         scores = score_normalize(raw, nf.clamp(min=1).expand(raw.shape[:-2]))
         return torch.where(nf[:, None, None] > 0, scores, -1.0)
     raw = similarity_dense(maps, kern, t_c)

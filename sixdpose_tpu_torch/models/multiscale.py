@@ -9,8 +9,9 @@ the frame,
 
     response pyramid -> depth proposals (``ops/scale_proposal.py``)
     -> coarse scoring of every (scale, template) pair at once
-       (``coarse_sweep``: shift-bucketed matmuls over weights built per
-       frame by a scatter-add) -> top-K over (scale, template, y, x)
+       (``coarse_sweep``: the feature lists scaled per frame, summed by the
+       coarse-scorer kernel on the card and by shift-bucketed matmuls on
+       the CPU) -> top-K over (scale, template, y, x)
     -> local refinement of every candidate with its own scale, one
        local-refine kernel launch per level (``pyramid_refine``)
     -> sort and box NMS
@@ -24,9 +25,9 @@ one readback waits for the device.
 
 The JAX package can also select the coarse weights from tables prebuilt
 per depth bin while they fit a byte budget, which saves its TPU a scatter
-build per frame.  On the H100 the per-frame scatter build was faster than
-the table selection at one class and at fifteen (``PERF.md``), so the port
-builds per frame only and its matchers take no ``table_budget_bytes``.
+build per frame.  The port scales the features per frame (the card's
+coarse-scorer kernel builds no weights), so its matchers take no
+``table_budget_bytes``.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from sixdpose_tpu_torch.convert import MultiScaleBank, multiscale_arrays, multis
 from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.models.detector import Detector, Match, _build_response_pyramid, _image, _offset, pyramid_refine
 from sixdpose_tpu_torch.ops.scale_proposal import bin_centers, propose_depth_bins
-from sixdpose_tpu_torch.ops.similarity import score_normalize, similarity_multiscale_matmul
+from sixdpose_tpu_torch.ops.similarity import score_normalize, similarity_multiscale_auto
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
 from sixdpose_tpu_torch.utils.timing import frame_entry, span, stage
 
@@ -71,10 +72,10 @@ def proposals(depth, bin_scales: torch.Tensor, num_scales: int, bins: Tuple[int,
 def coarse_sweep(maps_c, bank: MultiScaleBank, t_c: int, valid, scales):
     """Normalized coarse scores of every (scale, template) pair, (S * N,
     Ho, Wo), row s * N + n; -1 for templates without an in-extent feature
-    and for empty proposals (``similarity_multiscale_matmul`` with weights
-    built for this frame's scales)."""
+    and for empty proposals (``similarity_multiscale_auto`` at this frame's
+    scales)."""
     kh_c, kw_c = bank.kdims[-1]
-    raw, nfeat = similarity_multiscale_matmul(maps_c, bank.feats[-1], bank.valids[-1], scales, t_c, kh_c, kw_c)
+    raw, nfeat = similarity_multiscale_auto(maps_c, bank.feats[-1], bank.valids[-1], scales, t_c, kh_c, kw_c)
     scores = score_normalize(raw, nfeat.clamp(min=1))
     n = bank.feats[-1].shape[0]
     ok = (nfeat > 0) & valid[:, None].expand(valid.shape[0], n).reshape(-1)

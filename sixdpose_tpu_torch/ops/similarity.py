@@ -7,12 +7,16 @@ here that sum is
 
 - ``similarity_dense``: one float32 convolution of the space-to-depth
   response maps with one-hot template kernels, for the coarse level;
-- ``similarity_multiscale_matmul``: the same coarse sum, for banks too
-  large for the conv, as one matmul per shift bucket of the feature lists
-  (optionally at several feature scales: the multi-scale matchers);
-- ``similarity_multiscale_sparse``, ``similarity_dense_pre_s2d`` and
-  ``build_kernels_scaled``: the same multi-scale sum as a row gather and as
-  a conv of scaled one-hot kernels (references, off the main path);
+- ``similarity_multiscale_auto``: the same coarse sum, for banks too
+  large for the conv, over the feature lists (optionally at several feature
+  scales: the multi-scale matchers).  On a CUDA tensor it runs the
+  hand-written gather-sum kernel of ``ops/coarse_score.py``, whose plain
+  version is ``similarity_multiscale_sparse``; on a CPU tensor
+  ``similarity_multiscale_matmul``, one matmul per shift bucket, as the JAX
+  package computes it;
+- ``similarity_dense_pre_s2d`` and ``build_kernels_scaled``: the same
+  multi-scale sum as a conv of scaled one-hot kernels (references, off the
+  main path);
 - ``similarity_local_sparse``: a per-candidate gather-sum over a 16x16
   window of placements, for the pyramid refinement.  On a CUDA tensor it
   runs the hand-written kernel of ``ops/local_refine.py``; this module holds
@@ -95,12 +99,6 @@ def build_kernels_scaled(
     # Masked features add 0 at index 0.
     kern.scatter_add_(0, torch.where(ok, flat, 0).reshape(-1), ok.to(torch.float32).reshape(-1))
     return kern.reshape(n, num_channels, kh, kw)
-
-
-def count_kernel_features(kernels: torch.Tensor) -> torch.Tensor:
-    """Effective feature count per template ((N, C, KH, KW) -> (N,) int32);
-    scaling can merge features onto one cell, and out-of-extent ones drop."""
-    return kernels.sum(dim=(1, 2, 3)).to(torch.int32)
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -186,11 +184,10 @@ def similarity_dense_pre_s2d(response_maps: torch.Tensor, kernels_s2d: torch.Ten
     return torch.round(F.conv2d(lhs, kernels_s2d.to(torch.float32)))[0]
 
 
-# Bytes of one row chunk of the float32 shift-bucketed weights W.  An 80 GB
-# H100 holds the 9 x 810-template bank's whole W (0.48 GB) and a 15 x
-# 337-template VGA bank's (0.33 GB) in one chunk beside the bank and a fused
-# frame's ICP buffers; larger sweeps (many scales) build and contract W a
-# chunk at a time, so its peak stays at 1 GiB.
+# Bytes of one row chunk of the float32 shift-bucketed weights W (and of the
+# plain gather's indices and gathered bytes).  The CPU route builds and
+# contracts W a chunk at a time, so its peak stays at 1 GiB whatever the
+# sweep; the card runs the coarse-scorer kernel, which builds no W.
 _W_CHUNK_BYTES = 1 << 30
 
 
@@ -274,7 +271,8 @@ def similarity_multiscale_matmul(
     kw: int,
 ):
     """Coarse scoring of every template at every scale as shift-bucketed
-    matmuls (the JAX package's ``similarity_multiscale_matmul``).
+    matmuls (the JAX package's ``similarity_multiscale_matmul``): the
+    route of CPU tensors in ``similarity_multiscale_auto``.
 
     Feature f of template n at scale s sits at (round(x * s), round(y * s))
     and counts only if valid, inside the (kh, kw) extent and s > 0; in the
@@ -325,18 +323,6 @@ def similarity_multiscale_matmul(
     return (raw[0] if single else raw), nfeat
 
 
-def _im2col_s2d(response_maps: torch.Tensor, t: int, khb: int, kwb: int):
-    """Unfold the space-to-depth maps into im2col rows: (P (khb*kwb*C*t*t,
-    Ho*Wo), Ho, Wo), row (dy*kwb + dx)*C*t*t + c' holding
-    maps_s2d[c', dy:dy+Ho, dx:dx+Wo] flattened (bucket-major, as in the JAX
-    package)."""
-    maps = _s2d_maps(response_maps, t)  # (C*t*t, Hb, Wb)
-    ct2, hb, wb = maps.shape
-    ho, wo = hb - khb + 1, wb - kwb + 1
-    blocks = torch.stack([maps[:, dy : dy + ho, dx : dx + wo] for dy in range(khb) for dx in range(kwb)])
-    return blocks.reshape(khb * kwb * ct2, ho * wo), ho, wo
-
-
 def similarity_multiscale_sparse(
     response_maps: torch.Tensor,
     feats: torch.Tensor,
@@ -346,29 +332,55 @@ def similarity_multiscale_sparse(
     kh: int,
     kw: int,
 ):
-    """Coarse multi-scale scoring as a feature-sparse row gather:
+    """Coarse multi-scale scoring as a feature-sparse gather-sum: the plain
+    version of the coarse-scorer kernel (``ops/coarse_score.py``), with
     ``similarity_multiscale_matmul``'s contract and integers.
 
-    The s2d maps are unfolded once (``_im2col_s2d``); every (scale,
-    template, feature) then gathers the one row of its (bucket, channel),
-    and the rows sum over features in int32.  Work scales with the feature
-    count, like the reference's linearized memories (cpp:1215-1243).  Rows
-    are gathered a chunk at a time, so the gathered bytes stay within
-    ``_W_CHUNK_BYTES``.  (The JAX package packs four byte lanes into 32-bit
-    words here, a TPU gather workaround the port does not need.)
+    Every counted (scale, template, feature) reads the space-to-depth maps
+    (B, ct2, hb, wb) at one packed offset c' * hb * wb + (ys // t) * wb +
+    xs // t (``bucket_table``'s bucket and channel, c' clamped into the maps
+    as the matmul route's weight build clamps it), plus y * wb + x at
+    placement (y, x); the rows sum over features in int32.  Work scales
+    with the feature count, like the reference's linearized memories
+    (cpp:1215-1243).  Rows are gathered a chunk at a time, so the index and
+    gathered bytes stay within ``_W_CHUNK_BYTES``.  (The JAX package gathers
+    rows of an im2col of the maps, with four byte lanes packed into 32-bit
+    words: TPU gather workarounds the port does not need.)
 
-    Returns (raw (S * N, Ho, Wo) float32, nfeat (S * N,) int32).
+    Args and returns as ``similarity_multiscale_matmul``: maps (C, H, W) or
+    (B, C, H, W) uint8 -> (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,)
+    int32).
     """
+    single = response_maps.dim() == 3
+    maps = _s2d_maps(response_maps[None] if single else response_maps, t)
+    b, ct2, hb, wb = maps.shape
     khb, kwb = -(-kh // t), -(-kw // t)
-    p, ho, wo = _im2col_s2d(response_maps, t, khb, kwb)
-    p = F.pad(p, (0, 0, 0, 1))  # a zero row for masked features
-    ct2 = response_maps.shape[0] * t * t
+    ho, wo = hb - khb + 1, wb - kwb + 1
     bucket, cprime, ok = bucket_table(feats, valid, scales, t, kh, kw)
-    idx = torch.where(ok, bucket * ct2 + cprime, p.shape[0] - 1).to(torch.int64)
-    sn, f = idx.shape
-    chunk = max(1, min(sn, _W_CHUNK_BYTES // max(f * p.shape[1] * 5, 1)))
-    raw = torch.cat([p[idx[i : i + chunk]].sum(dim=1, dtype=torch.int32) for i in range(0, sn, chunk)])
-    return raw.reshape(sn, ho, wo).to(torch.float32), ok.sum(-1).to(torch.int32)
+    plane = hb * wb
+    off = cprime.clamp(0, ct2 - 1).to(torch.int64) * plane + (bucket // kwb) * wb + bucket % kwb
+    dev = maps.device
+    base = (torch.arange(ho, device=dev)[:, None] * wb + torch.arange(wo, device=dev)).reshape(-1)
+    flat = F.pad(maps.reshape(b, ct2 * plane), (0, 1))  # masked features read the zero past the maps
+    sn, f = off.shape
+    chunk = max(1, min(sn, _W_CHUNK_BYTES // max(f * base.numel() * (8 + b), 1)))
+    parts = []
+    for i in range(0, sn, chunk):
+        idx = torch.where(ok[i : i + chunk, :, None], off[i : i + chunk, :, None] + base, ct2 * plane)
+        parts.append(flat[:, idx].sum(dim=2, dtype=torch.int32))  # (B, rows, P)
+    raw = torch.cat(parts, dim=1).reshape(b, sn, ho, wo).to(torch.float32)
+    return (raw[0] if single else raw), ok.sum(-1).to(torch.int32)
+
+
+def similarity_multiscale_auto(response_maps, feats, valid, scales, t: int, kh: int, kw: int):
+    """Dispatch of the coarse scorer: the hand-written kernel for CUDA
+    tensors, the shift-bucketed matmuls for CPU tensors (the kernel's
+    wrapper makes that choice by device, and only by device).  Same
+    contract as ``similarity_multiscale_matmul``."""
+    # Imported here: ops/coarse_score.py imports this module.
+    from sixdpose_tpu_torch.ops.coarse_score import similarity_multiscale_cuda
+
+    return similarity_multiscale_cuda(response_maps, feats, valid, scales, t, kh, kw)
 
 
 def _local_conv_operands(response_maps, kernels_sel, origins, t: int, window: int):

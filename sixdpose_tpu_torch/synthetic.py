@@ -19,6 +19,9 @@
   (``tools/bench_multiscale_multiclass.py``): 15 classes of 337 templates,
   a VGA RGB-D frame of noisy depth planes and its settings.  The bank is
   drawn (the case1 bank that tool clones is not in the repository).
+- ``coarse_scorer_call``: the coarse scorer's inputs at the shapes of the
+  T-LESS and LINEMOD benchmark deployments, with random maps and feature
+  lists, for the card's tests and timings of the coarse-scorer kernel.
 - ``planted_scene_scaled``: the planted scene with object 0 resized to a
   given scale and set at a given depth, for the multi-scale golden
   (``tools/torch_port_ms_golden.py``).
@@ -360,6 +363,35 @@ def multiscale_detector(workload: dict, device) -> Detector:
         for levels in templates:
             det.bank.add_template_levels(cid, levels)
     return det
+
+
+def coarse_scorer_call(deployment: str, seed: int = 20):
+    """The coarse scorer's inputs (maps, feats, valid, scales, t, kh, kw),
+    numpy arrays and ints, at a benchmark deployment's coarse shape:
+
+    - ``"tless"``: 30 classes x 1,296 views in one bank, scale 1, the 270 x
+      360 level-1 maps of a 720 x 540 frame, a 113-pixel extent (15 x 15
+      shift buckets, 20 x 31 placements);
+    - ``"linemod"``: 15 x 337 templates at five proposal scales (one of them
+      0, an empty proposal), the 240 x 320 maps of a VGA frame padded by 13
+      blocks bottom and right as the multi-scale core pads them, a
+      172-pixel extent (the largest template at scale 4/3).
+
+    Up to 62 features a template (31 colour + 31 depth at level 1), ragged
+    counts with padded tails; responses in 0..4."""
+    rng = np.random.default_rng(seed)
+    if deployment == "tless":
+        n, h, w, ext, pad, src, scales = 38880, 270, 360, 113, 0, 113, [1.0]
+    elif deployment == "linemod":
+        n, h, w, ext, pad, src = 5055, 240, 320, 172, 13 * 8, 129
+        scales = [1.0909091, 0.7058824, 0.0, 0.52173913, 0.41379312]
+    else:
+        raise ValueError(f"unknown deployment {deployment!r}: 'tless' or 'linemod'")
+    f = 62
+    maps = np.pad(rng.integers(0, 5, (16, h, w)).astype(np.uint8), ((0, 0), (0, pad), (0, pad)))
+    feats = np.stack([rng.integers(0, src, (n, f)), rng.integers(0, src, (n, f)), rng.integers(0, 16, (n, f))], -1)
+    valid = np.arange(f)[None] < rng.integers(20, f + 1, (n, 1))
+    return maps, feats.astype(np.int32), valid, np.array(scales, np.float32), 8, ext, ext
 
 
 def _resize_nearest(a: np.ndarray, scale: float) -> np.ndarray:

@@ -31,6 +31,8 @@ from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops.similarity import similarity_local_sparse
 
+from coarse_cases import EDGE_CASES, edge_case
+
 pytestmark = pytest.mark.cuda
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sixdpose_tpu_torch", "testdata")
@@ -342,6 +344,85 @@ def test_matmul_scorer_on_card_equals_cpu_and_dense(cuda):
     dense = TS.similarity_dense(torch.from_numpy(maps).to(cuda), kern, 8)
     assert torch.equal(out["cuda"][0][:300], dense)
     assert not out["cuda"][0][300:600].any() and not out["cuda"][1][300:600].any()
+
+
+
+# The coarse-scorer kernel (csrc/coarse_score.cu) against the matmul route
+# and its plain version: exact, integer sums in float32.
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_coarse_kernel_equals_matmul_and_plain(cuda, name):
+    """At each edge case of ``tests/coarse_cases.py`` (zero scales, .5
+    ties, the extent's border, F = 1 and 8191, B = 1 and 4, padded maps,
+    the T-LESS coarse map shape) the kernel's raw sums and counts equal the
+    CPU's matmul route and the plain gather-sum on the card, in one launch."""
+    from sixdpose_tpu_torch.ops import coarse_score as CS
+    from sixdpose_tpu_torch.ops import similarity as TS
+
+    maps, feats, valid, scales, t, kh, kw = edge_case(name)
+    cpu = [torch.from_numpy(a) for a in (maps, feats, valid, scales)]
+    gpu = [a.to(cuda) for a in cpu]
+    before = CS.similarity_multiscale_cuda.launches
+    raw, nf = TS.similarity_multiscale_auto(*gpu, t, kh, kw)
+    torch.cuda.synchronize()
+    assert CS.similarity_multiscale_cuda.launches == before + 1
+    want = TS.similarity_multiscale_matmul(*cpu, t, kh, kw)
+    plain = TS.similarity_multiscale_sparse(*gpu, t, kh, kw)
+    assert raw.dtype == torch.float32 and nf.dtype == torch.int32 and raw.shape == want[0].shape
+    assert torch.equal(raw.cpu(), want[0]) and torch.equal(nf.cpu(), want[1])
+    assert torch.equal(raw, plain[0]) and torch.equal(nf, plain[1])
+
+
+@pytest.mark.parametrize("name", ["tless", "linemod"])
+def test_coarse_kernel_at_the_cells_shapes(cuda, name):
+    """At the benchmark cells' coarse shapes the kernel equals the card's
+    matmul route (the per-bucket addmm it replaces) and the plain
+    gather-sum, raw and counts."""
+    from sixdpose_tpu_torch.ops import similarity as TS
+
+    call = synthetic.coarse_scorer_call(name)
+    args = [torch.from_numpy(a).to(cuda) for a in call[:4]] + list(call[4:])
+    raw, nf = TS.similarity_multiscale_auto(*args)
+    want = TS.similarity_multiscale_matmul(*args)
+    assert torch.equal(raw, want[0]) and torch.equal(nf, want[1])
+    del want
+    plain = TS.similarity_multiscale_sparse(*args)
+    assert torch.equal(raw, plain[0]) and torch.equal(nf, plain[1])
+
+
+def test_coarse_kernel_runs_once_a_frame(cuda, monkeypatch):
+    """A frame of the multi-class matcher's feature-list branch and of the
+    multi-scale matcher launches the coarse kernel once, and no ``addmm``
+    runs inside its ``coarse`` stage."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sixdpose_tpu_torch.models import detector as TD
+    from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
+    from sixdpose_tpu_torch.models.multiscale import MultiScaleMultiClass
+    from sixdpose_tpu_torch.ops import coarse_score as CS
+
+    monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
+    w, det = _multiclass(cuda)
+    mc = MultiClassMatcher(det, device=cuda)
+    w_ms = synthetic.multiscale_workload(classes=3, views=24)
+    ms = MultiScaleMultiClass(synthetic.multiscale_detector(w_ms, cuda), w_ms["train_depth"], device=cuda,
+                              num_scales=w_ms["num_scales"])
+    frames = [lambda: mc.match_arrays(w["rgb"], w["depth"], 30.0), lambda: ms.match_arrays(w_ms["rgb"], w_ms["depth"], 30.0)]
+    for frame in frames:
+        frame()
+    torch.cuda.synchronize()
+    before = CS.similarity_multiscale_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        for frame in frames:
+            frame()
+        torch.cuda.synchronize()
+    assert CS.similarity_multiscale_cuda.launches == before + 2
+    coarse = [e.time_range for e in prof.events() if e.name == "sixdpose.coarse"]
+    assert len(coarse) == 2
+    inside = [e.name for e in prof.events() if e.name in ("aten::addmm", "aten::mm", "aten::matmul")
+              and any(r.start <= e.time_range.start <= r.end for r in coarse)]
+    assert not inside, inside
 
 
 def _multiclass(device, classes=3, views=40):

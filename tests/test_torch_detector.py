@@ -174,7 +174,7 @@ def test_coarse_matmul_branch_not_ported(monkeypatch):
         taken.append(("dense", t))
         return torch.zeros((1, kern_.shape[0], 2, 2))
 
-    monkeypatch.setattr(TD, "similarity_multiscale_matmul", matmul)
+    monkeypatch.setattr(TD, "similarity_multiscale_auto", matmul)
     monkeypatch.setattr(TD, "similarity_dense", dense)
     nf = [torch.full((4000,), 8)] * 2
     scores = TD.coarse_scores([maps, maps], [kern, kern], nf, (4, 4), [feats, feats], [valids, valids])

@@ -162,9 +162,9 @@ def test_matmul_branch_gives_the_dense_result(three_class, monkeypatch):
     want = JMatcher(jdet).match_arrays(_scene(), None, 40.0)
     tm = MultiClassMatcher(tdet, device="cpu")
     taken = []
-    matmul = TD.similarity_multiscale_matmul
+    matmul = TD.similarity_multiscale_auto
     monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
-    monkeypatch.setattr(TD, "similarity_multiscale_matmul", lambda *a: taken.append(1) or matmul(*a))
+    monkeypatch.setattr(TD, "similarity_multiscale_auto", lambda *a: taken.append(1) or matmul(*a))
     assert _assert_same_live(want, tm.match_arrays(_scene(), None, 40.0)) >= 2
     assert taken == [1]
 

@@ -19,6 +19,8 @@ from sixdpose_tpu.ops import similarity as JS
 from sixdpose_tpu_torch.models import detector as TD
 from sixdpose_tpu_torch.ops import similarity as TS
 
+from coarse_cases import EDGE_CASES, edge_case
+
 
 def _case(seed, c=16, h=96, w=128, n=23, f=37, kh=33, kw=41, b=None, spill=6):
     """Random maps in 0..4 and feature lists reaching ``spill`` pixels past
@@ -145,3 +147,39 @@ def test_coarse_scores_matmul_branch_matches_jax(monkeypatch):
                                         (None, jnp.asarray(valid.sum(1).astype(np.int32))), t_at_level))
     has = valid.sum(1) > 0
     np.testing.assert_array_equal(got.numpy()[has], dense[has])
+
+
+
+@pytest.mark.parametrize("name", EDGE_CASES)
+def test_multiscale_sparse_equals_matmul(name):
+    """The coarse-scorer kernel's plain version (``similarity_multiscale_sparse``)
+    gives the matmul route's raw sums and counts to the bit, frame batches
+    included; the cases are the kernel's edge cases on the card."""
+    maps, feats, valid, scales, t, kh, kw = edge_case(name)
+    args = [torch.from_numpy(a) for a in (maps, feats, valid, scales)] + [t, kh, kw]
+    want_raw, want_nf = TS.similarity_multiscale_matmul(*args)
+    got_raw, got_nf = TS.similarity_multiscale_sparse(*args)
+    assert got_raw.dtype == torch.float32 and got_nf.dtype == torch.int32
+    assert got_raw.shape == want_raw.shape
+    assert torch.equal(got_nf, want_nf) and torch.equal(got_raw, want_raw)
+    assert got_raw.any()
+    for s in np.flatnonzero(scales == 0):  # an empty proposal scores nothing
+        rows = slice(s * feats.shape[0], (s + 1) * feats.shape[0])
+        assert not got_nf[rows].any() and not got_raw[..., rows, :, :].any()
+
+
+def test_cpu_tensors_keep_the_matmul_route(monkeypatch):
+    """On CPU tensors the coarse dispatch runs the shift-bucketed matmuls
+    and never the kernel: its launch counter stays where it was."""
+    from sixdpose_tpu_torch.ops import coarse_score as CS
+
+    maps, feats, valid = _case(21)
+    args = [torch.from_numpy(a) for a in (maps, feats, valid)] + [torch.tensor([1.0, 0.0, 0.8]), 8, 33, 41]
+    taken = []
+    matmul = CS.similarity_multiscale_matmul
+    monkeypatch.setattr(CS, "similarity_multiscale_matmul", lambda *a: taken.append(1) or matmul(*a))
+    before = CS.similarity_multiscale_cuda.launches
+    raw, nf = TS.similarity_multiscale_auto(*args)
+    assert taken == [1] and CS.similarity_multiscale_cuda.launches == before
+    want = matmul(*args)
+    assert torch.equal(raw, want[0]) and torch.equal(nf, want[1])
