@@ -73,6 +73,21 @@ class ServiceMetrics:
 
 
 @dataclasses.dataclass
+class _Hypotheses:
+    """The host route's hypotheses of one frame, on the host: the matches
+    (M), their ICP clouds (M, P, 3) m and valid masks (M, P), seed
+    transforms (M, 4, 4) float32, cloud centroids (M, 3), and the clouds'
+    colours (M, P, 3) where every one has them, else None."""
+
+    meta: list
+    clouds: np.ndarray
+    valids: np.ndarray
+    init_T: np.ndarray
+    srcs: np.ndarray
+    colors: Optional[np.ndarray]
+
+
+@dataclasses.dataclass
 class PoseEstimate:
     class_id: str
     template_id: int
@@ -185,6 +200,7 @@ class PoseEstimationService:
         self._fused_mc: Optional[FusedMultiClassPipeline] = None
         self._fused_mc_key: Optional[tuple] = None
         self._vpts: Dict[str, tuple] = {}
+        self._vpts_device: Dict[str, tuple] = {}
 
     def _has_fused_fields(self, class_id: str) -> bool:
         """Every template of the class carries the infos the fused
@@ -222,6 +238,11 @@ class PoseEstimationService:
         port builds the coarse weights per frame."""
         cls = MultiScaleMultiClass if len(self.det.class_ids()) > 1 else MultiScaleDetector
         self._multiscale = cls(self.det, train_depth, num_scales=num_scales, device=self.device, **kwargs)
+        # The host route verifies every class it meets: each class's
+        # sample is built and uploaded here, not inside a frame.
+        for cid in self.det.class_ids():
+            if cid in self.models:
+                self._verify_points(cid)
 
     def _fused_pipeline(self, class_id: str) -> Optional[FusedPipeline]:
         """Build (or fetch) the fused pipeline for a class; None when its
@@ -333,9 +354,12 @@ class PoseEstimationService:
 
         Prefers the fused path (``process_frame_fused``) when the banks
         carry train-time clouds; otherwise, and with multi-scale matching,
-        orchestrates match -> cloud build -> batched ICP -> verify from the
-        host."""
-        h, w = depth.shape
+        orchestrates match -> hypotheses (``_hypotheses``: the per-class
+        budget and each one's cloud and seed, on the host) -> batched ICP
+        -> verify (``_refine``) from the host: the service's stages
+        ``match``, ``hypotheses``, ``icp`` and ``verify``, and its counter
+        ``hypotheses`` (the hypotheses refined, each from ``icp_seeds``
+        seeds)."""
         ms = self._multiscale
         if ms is None and self.prefer_fused:
             fused = self.process_frame_fused(rgb, depth)
@@ -358,6 +382,39 @@ class PoseEstimationService:
                 matches = self.det.match(rgb, depth, self.threshold)
         self.metrics.count("frames")
         self.metrics.count("matches", len(matches))
+        with self.metrics.timer("hypotheses"):
+            hyps = self._hypotheses(matches, depth)
+        if hyps is None:
+            return []
+        self.metrics.count("hypotheses", len(hyps.meta))
+        R, t_mm, fits, ver = self._refine(rgb, depth, hyps)
+        out = []
+        for i, m in enumerate(hyps.meta):
+            if fits[i] < self.min_fitness or ver[i] < self.min_verify:
+                continue
+            out.append(
+                PoseEstimate(
+                    class_id=m.class_id,
+                    template_id=m.template_id,
+                    x=m.x,
+                    y=m.y,
+                    similarity=m.similarity,
+                    R=R[i],
+                    t=t_mm[i],
+                    fitness=float(fits[i]),
+                    verify=float(ver[i]),
+                )
+            )
+        self.metrics.count("estimates", len(out))
+        kept = nms_norms(out, self.dedupe_radius_mm, key=self.rank_key)
+        self.metrics.count("published", len(kept))
+        return kept
+
+    def _hypotheses(self, matches, depth: np.ndarray) -> Optional["_Hypotheses"]:
+        """The host route's hypotheses of one frame: ``max_refine`` matches
+        per class and each one's ICP cloud and seed transform, on the host;
+        None where no match has a cloud."""
+        h, w = depth.shape
         # Keep max_refine hypotheses PER CLASS (parity with the fused
         # multi-class pipeline).  Within a class, dedupe on (template,
         # location).  Tiered budget: pass 1 admits each template's FIRST
@@ -385,8 +442,6 @@ class PoseEstimationService:
                 ks.append(m)
         matches = [m for ks in per_class_kept.values() for m in ks]
         matches.sort(key=lambda m: -m.similarity)
-        if not matches:
-            return []
 
         clouds, valids, init_Ts, meta, colors, srcs = [], [], [], [], [], []
         npts = self.icp.num_model_points
@@ -465,10 +520,24 @@ class PoseEstimationService:
             srcs.append(src_c.astype(np.float32))
 
         if not clouds:
-            return []
+            return None
+        return _Hypotheses(
+            meta=meta,
+            clouds=np.stack(clouds),
+            valids=np.stack(valids),
+            init_T=np.stack(init_Ts),
+            srcs=np.stack(srcs),
+            colors=np.stack(colors).astype(np.float32) if all(c is not None for c in colors) else None,
+        )
 
+    def _refine(self, rgb: np.ndarray, depth: np.ndarray, hyps: "_Hypotheses"):
+        """Batched ICP of every hypothesis from its in-plane seeds, each
+        refined seed composed with its template pose and verified against
+        its class's points, and each hypothesis's best-verified seed: host
+        arrays (R (M, 3, 3), t (M, 3, 1) mm, fitness (M,), verify (M,))."""
         dev = self.device
         up = lambda a, dtype=np.float32: torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype))).to(dev)  # noqa: E731
+        meta = hyps.meta
         # The ICP seeds and the scene maps, on the device: the ``seed`` span
         # (the fused frame counts them in its ``icp`` span).
         with span("seed"):
@@ -477,21 +546,21 @@ class PoseEstimationService:
             sp = backproject(depth_t, K_t)
             sn = scene_normals(sp)
             # Colored ICP when every candidate cloud carries colors.
-            use_color = self.icp.color_weight > 0.0 and rgb is not None and all(c is not None for c in colors)
+            use_color = self.icp.color_weight > 0.0 and rgb is not None and hyps.colors is not None
             # In-plane seed fan (parity with the fused cores): each candidate
             # refines from icp_seeds in-plane rotations (last slot a 180-deg
             # flip when seed_flip) and keeps its best-VERIFIED seed below.
             s_n = max(1, self.icp_seeds)
-            clouds_a = np.stack(clouds)
-            valids_a = np.stack(valids)
-            init_T_a = up(np.stack(init_Ts))
+            clouds_a = hyps.clouds
+            valids_a = hyps.valids
+            init_T_a = up(hyps.init_T)
             if s_n > 1:
-                init_T_a = _inplane_seed_transforms(init_T_a, up(np.stack(srcs)), s_n, flip=self.seed_flip)
+                init_T_a = _inplane_seed_transforms(init_T_a, up(hyps.srcs), s_n, flip=self.seed_flip)
                 clouds_a = np.repeat(clouds_a, s_n, axis=0)
                 valids_a = np.repeat(valids_a, s_n, axis=0)
             rgb_t = up(rgb, np.uint8) if rgb is not None else None
             if use_color:
-                col = np.stack(colors).astype(np.float32)
+                col = hyps.colors
                 chroma = col[..., :2] / np.maximum(col.sum(-1, keepdims=True), 1e-6)
                 if s_n > 1:
                     chroma = np.repeat(chroma, s_n, axis=0)
@@ -555,28 +624,7 @@ class PoseEstimationService:
 
         rank = np.where(ver_all >= 0, ver_all * 100.0 + np.maximum(fits, 0.0), fits)
         best = rank.reshape(n_c, s_n).argmax(axis=1) + np.arange(n_c) * s_n
-        out = []
-        for i, m in enumerate(meta):
-            j = int(best[i])
-            if fits[j] < self.min_fitness or ver_all[j] < self.min_verify:
-                continue
-            out.append(
-                PoseEstimate(
-                    class_id=m.class_id,
-                    template_id=m.template_id,
-                    x=m.x,
-                    y=m.y,
-                    similarity=m.similarity,
-                    R=results[j, :3, :3],
-                    t=results[j, :3, 3:4] * 1000.0,
-                    fitness=float(fits[j]),
-                    verify=float(ver_all[j]),
-                )
-            )
-        self.metrics.count("estimates", len(out))
-        kept = nms_norms(out, self.dedupe_radius_mm, key=self.rank_key)
-        self.metrics.count("published", len(kept))
-        return kept
+        return results[best, :3, :3], results[best, :3, 3:4] * 1000.0, fits[best], ver_all[best]
 
     def _template_base(self, m) -> np.ndarray:
         """Template pose as a 4x4 (z mm -> m, the reference quirk at
@@ -653,10 +701,13 @@ class PoseEstimationService:
         return self._vpts[class_id]
 
     def _verify_points(self, class_id: str):
-        """``_verify_points_np`` as tensors on the service's device."""
-        pts, colors = self._verify_points_np(class_id)
-        up = lambda a: torch.from_numpy(a).to(self.device) if a is not None else None  # noqa: E731
-        return up(pts), up(colors)
+        """``_verify_points_np`` as tensors on the service's device, uploaded
+        once."""
+        if class_id not in self._vpts_device:
+            pts, colors = self._verify_points_np(class_id)
+            up = lambda a: torch.from_numpy(a).to(self.device) if a is not None else None  # noqa: E731
+            self._vpts_device[class_id] = (up(pts), up(colors))
+        return self._vpts_device[class_id]
 
     def run(self, frames, callback: Callable[[List[PoseEstimate]], None]) -> None:
         """Process an iterable of (rgb, depth) frames (the ROS

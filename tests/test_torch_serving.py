@@ -132,8 +132,11 @@ def test_service_case_matches_jax_golden(golden, case):
     ests = svc.process_frame(golden["rgb"][scene], golden["depth"][scene])
     i = 0 if case == "host" else 1
     assert_estimates(ests, golden, "case", i)
-    assert svc.metrics.snapshot()["counters"] == json.loads(str(golden["case_counters"]))[i]
-    assert {"match", "icp", "verify"} <= set(svc.metrics.snapshot()["stages"])
+    counters = svc.metrics.snapshot()["counters"]
+    hypotheses = counters.pop("hypotheses")  # the port's own counter; JAX's service has none
+    assert counters == json.loads(str(golden["case_counters"]))[i]
+    assert counters["estimates"] <= hypotheses <= counters["matches"]
+    assert {"match", "hypotheses", "icp", "verify"} <= set(svc.metrics.snapshot()["stages"])
     if case == "multiscale":
         assert all(e.verify >= 0.0 for e in ests)
 
@@ -166,12 +169,74 @@ def test_stage_timers_are_unchanged_and_traced_under_their_names(golden, case):
     counts = {n: s["count"] for n, s in snap_t["stages"].items()}
     assert counts == {n: s["count"] for n, s in snap_p["stages"].items()}
     assert snap_t["counters"] == snap_p["counters"]
-    stages = {"fused": {"fused_dispatch", "fused_readback"}, "host": {"match", "icp", "verify"}}
+    stages = {"fused": {"fused_dispatch", "fused_readback"}, "host": {"match", "hypotheses", "icp", "verify"}}
     assert set(counts) == stages.get(case, stages["host"])
     spans = [e.name for e in prof.events() if e.name.startswith("sixdpose.")]
     assert spans.count("sixdpose.frame") == 1
     for name, n in counts.items():
         assert spans.count(f"sixdpose.{name}") == n, name
+
+
+@pytest.mark.parametrize("case", ["host", "multiscale"])
+def test_hypotheses_span_and_timer_open_once_a_host_route_frame(golden, case):
+    from torch.profiler import ProfilerActivity, profile
+
+    svc, scene = _case_service(golden, case)
+    frame = (golden["rgb"][scene], golden["depth"][scene])
+    svc.process_frame(*frame)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        svc.process_frame(*frame)
+    assert [e.name for e in prof.events()].count("sixdpose.hypotheses") == 1
+    assert svc.metrics.snapshot()["stages"]["hypotheses"]["count"] == 2
+
+
+@pytest.mark.parametrize("case,seeds", [("host", 1), ("host", None), ("multiscale", 1), ("multiscale", None)])
+def test_hypotheses_counter_is_the_clouds_sent_to_icp(golden, case, seeds, monkeypatch):
+    """One count a hypothesis, each refined from ``icp_seeds`` clouds (the
+    golden's service fans 4 seeds)."""
+    from sixdpose_tpu_torch import serving
+
+    svc, scene = _case_service(golden, case)
+    if seeds is not None:
+        svc.icp_seeds = seeds
+    sent = []
+    real = serving.icp_batch
+
+    def spy(model_pts, *a, **k):
+        sent.append(model_pts.shape[0])
+        return real(model_pts, *a, **k)
+
+    monkeypatch.setattr(serving, "icp_batch", spy)
+    svc.process_frame(golden["rgb"][scene], golden["depth"][scene])
+    assert len(sent) == 1 and sent[0] > 0
+    assert sent[0] == svc.metrics.counters["hypotheses"] * svc.icp_seeds
+
+
+def test_verify_samples_are_built_at_enable_multiscale_and_never_in_a_frame(golden, monkeypatch):
+    svc, scene = _case_service(golden, "multiscale")
+    assert set(svc._vpts_device) == set(svc.det.class_ids())
+    before = {c: svc._verify_points(c) for c in svc.det.class_ids()}
+
+    def build(class_id):
+        raise AssertionError(f"the verify sample of {class_id} was built inside a frame")
+
+    monkeypatch.setattr(svc, "_verify_points_np", build)
+    ests = svc.process_frame(golden["rgb"][scene], golden["depth"][scene])
+    assert_estimates(ests, golden, "case", 1)
+    for c, (pts, colors) in before.items():  # the same device tensors: nothing uploaded again
+        got = svc._verify_points(c)
+        assert got[0] is pts and got[1] is colors
+
+
+def test_fused_path_opens_no_hypotheses_span(golden):
+    from torch.profiler import ProfilerActivity, profile
+
+    svc = make_service(golden)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        svc.process_frame(golden["rgb"][0], golden["depth"][0])
+    assert "sixdpose.hypotheses" not in {e.name for e in prof.events()}
+    assert "hypotheses" not in svc.metrics.snapshot()["stages"]
+    assert "hypotheses" not in svc.metrics.counters
 
 
 def test_fused_fallback_is_decided_by_the_infos(golden):
