@@ -99,6 +99,14 @@ non-zero:
    to its plain gather-sum, raw and counts; its time replayed from CUDA
    graphs and launched from Python, beside the bound, the plain version's
    time and that of the per-bucket ``addmm`` route it replaces;
+7c. icp: the ICP kernel (``csrc/icp.cu``) at the fused T-LESS frame's
+   call (240 candidates x 512 points, colour) and the LINEMOD host route's
+   (57 x 1,024, colour on and off, and 57 x 4,100 with colour;
+   ``synthetic.icp_call``): T, fitness and rmse equal to the bit to
+   ``icp_batch_plain`` on the card; its time replayed from CUDA graphs and
+   launched from Python, the kernels and the host microseconds of one
+   ``icp_batch`` call, beside the bound and the plain version's time (no
+   single PyTorch call computes ICP);
 8. match_golden: the JAX golden of ``tools/torch_port_golden.py`` on the
    planted-object VGA scene;
 9. refine_vga: ``detect_refine_core`` on the bench workload at thresholds
@@ -271,7 +279,8 @@ parallel`` runs env, build and the ``parallel`` phase only, then, with two
 or more cards, ``tools.bench_scaling``'s sweep over them (one line
 ``scaling``): on a host with four cards every rank has a card of its own
 and the ranks talk over NCCL.  ``python3 chip_smoke.py coarse_score`` runs
-env, build and the ``coarse_score`` phase only.
+env, build and the ``coarse_score`` phase only; ``python3 chip_smoke.py
+icp`` env, build and the ``icp`` phase.
 """
 
 from __future__ import annotations
@@ -297,6 +306,7 @@ import torch
 
 from sixdpose_tpu_torch import bench as TBN
 from sixdpose_tpu_torch import benchmark as TB
+from sixdpose_tpu_torch import serving as SV
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import DetectorConfig, IcpConfig
 from sixdpose_tpu_torch.convert import bank_levels_from_numpy, without_features
@@ -328,6 +338,7 @@ from sixdpose_tpu_torch.lchf.voting import dense_rois
 from sixdpose_tpu_torch.models import detector as D
 from sixdpose_tpu_torch.models import multiscale as M
 from sixdpose_tpu_torch.models import pipeline as P
+from sixdpose_tpu_torch.models import refine as TR
 from sixdpose_tpu_torch.models import train as TT
 from sixdpose_tpu_torch.models.detector import Detector, detect_frame_core
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
@@ -337,6 +348,7 @@ from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import _build
 from sixdpose_tpu_torch.ops import coarse_score as CS
 from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
+from sixdpose_tpu_torch.ops import icp as OI
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops import segment_sum as SS
@@ -369,6 +381,7 @@ from sixdpose_tpu_torch.seg.dasp import alic_pixel_table as seg_alic_pixel_table
 from sixdpose_tpu_torch.seg.dasp import convex_grouping as seg_convex_grouping
 from sixdpose_tpu_torch.seg.dasp import floyd_steinberg_seeds as seg_seeds
 from sixdpose_tpu_torch.seg.dasp import pixel_stage as seg_pixel_stage
+from sixdpose_tpu_torch.parallel import fused as PF
 from sixdpose_tpu_torch.parallel.distributed import backend_for, run_ranks
 from sixdpose_tpu_torch.parallel.rank_jobs import run_jobs
 from sixdpose_tpu_torch.parallel.sharded_match import merge_topk, multiscale_class_arrays, shard_bank
@@ -481,6 +494,43 @@ def counting_coarse_calls(phase: str):
     launches = CS.similarity_multiscale_cuda.launches
     check(launches == len(calls), f"{phase}: {launches} coarse-kernel launches for {len(calls)} feature-list coarse calls")
     COARSE_BY_PHASE[phase] = launches
+
+
+# ICP-kernel launches of each phase whose main path calls ``icp_batch``
+# (``counting_icp_calls``); the kernels line reports their sum.
+ICP_BY_PHASE: dict = {}
+# The names ``icp_batch`` is looked up under (``lchf.pose`` imports it from
+# ``models.refine`` at each call).
+ICP_CALLERS = (TR, P, SV, PF)
+
+
+@contextmanager
+def counting_icp_calls(phase: str, least: int = 0):
+    """Set the ICP kernel's launch count to 0, record every ``icp_batch``
+    call with candidates that the main path makes on card tensors (at each
+    name in ``ICP_CALLERS``), and on leaving check one launch per such call
+    and at least ``least`` calls, and keep the count under ``phase`` in
+    ``ICP_BY_PHASE``.  Yields the list of calls ((K, N) each)."""
+    calls: list = []
+    original = TR.icp_batch
+
+    def counting(model_pts, *rest, **kw):
+        if model_pts.is_cuda and model_pts.shape[0] > 0:
+            calls.append(tuple(model_pts.shape[:2]))
+        return original(model_pts, *rest, **kw)
+
+    OI.icp_cuda.launches = 0
+    for m in ICP_CALLERS:
+        m.icp_batch = counting
+    try:
+        yield calls
+    finally:
+        for m in ICP_CALLERS:
+            m.icp_batch = original
+    launches = OI.icp_cuda.launches
+    check(launches == len(calls), f"{phase}: {launches} ICP-kernel launches for {len(calls)} icp_batch calls")
+    check(len(calls) >= least, f"{phase}: {len(calls)} icp_batch calls on the card, expected at least {least}")
+    ICP_BY_PHASE[phase] = launches
 
 
 @contextmanager
@@ -917,6 +967,106 @@ def phase_coarse_score(dev) -> dict:
                  "kernel_eager_ms the same 20 calls issued from Python; plain_ms and library_ms 3 windows of one "
                  "call replayed from a CUDA graph; bound: bytes once each over 3.35 TB/s against one add per counted "
                  "feature and placement at 67 TFLOP/s"))
+    return cases
+
+
+# float32 operations of the plain ICP step, a point and an iteration,
+# counted from csrc/icp.cu: the association with a nearest tap (47) or four
+# bilinear taps (132), the 42 normal-equation terms of a point (384) and
+# the tree's 46 adds; with colour the chroma tap and dc/dp (47) and the
+# colour terms (294).  The solve is a few hundred a candidate.
+ICP_OPS = {"nearest": 47 + 384 + 46, "bilinear": 132 + 384 + 46, "color": 47 + 294, "final": 132 + 10, "solve": 700}
+
+
+def icp_bound(k: int, n: int, h: int, w: int, color: bool, icp: IcpConfig) -> dict:
+    """Least time of one ICP call on the card: the scene tables (packed
+    maps and chroma), the clouds, validity, chroma and start poses read once
+    and the poses, fitness and rmse written once over 3.35 TB/s, against
+    ``ICP_OPS`` over the iterations at 67 TFLOP/s."""
+    n_bi = max(0, min(icp.bilinear_iters, icp.max_iters))
+    n_coarse = -(-n // max(1, n // max(icp.coarse_points, 8)))
+    ops = k * ((icp.max_iters - n_bi) * n_coarse * ICP_OPS["nearest"] + n_bi * n * ICP_OPS["bilinear"]
+               + (icp.max_iters - n_bi) * n_coarse * ICP_OPS["color"] * color + n_bi * n * ICP_OPS["color"] * color
+               + n * ICP_OPS["final"] + icp.max_iters * ICP_OPS["solve"])
+    nbytes = h * w * (7 + 6 * color) * 4 + k * n * (12 + 1 + 8 * color) + k * 64 + k * (64 + 8)
+    out = {"bytes": nbytes, "flops": ops, "bytes_ms": nbytes / 3.35e12 * 1e3, "flops_ms": ops / 67e12 * 1e3}
+    out["bound_ms"] = max(out["bytes_ms"], out["flops_ms"])
+    out["bound_by"] = "bytes" if out["bytes_ms"] >= out["flops_ms"] else "float32 operations"
+    return out
+
+
+def time_icp(dev, deployment: str, color: bool = True, k: int = None, n: int = None) -> dict:
+    """The ICP kernel at a benchmark deployment's ICP call
+    (``synthetic.icp_call``, ``IcpConfig``'s settings): T, fitness and rmse
+    equal to ``icp_batch_plain`` on the card to the bit; then its time
+    replayed from a CUDA graph (20 calls a window) and launched from Python,
+    the kernels one ``icp_batch`` call launches and the host microseconds
+    it takes to enqueue them, beside the bound and the plain version's
+    time and kernels.  ``k`` and ``n`` override the deployment's counts."""
+    icp = IcpConfig()
+    c = synthetic.icp_call(deployment, k=k, n=n, color=color)
+    K = torch.from_numpy(c["K"]).to(dev)
+    sp = TR.backproject(torch.from_numpy(c["depth"]).to(dev), K)
+    args = [torch.from_numpy(c["pts"]).to(dev), torch.from_numpy(c["valid"]).to(dev), sp, TR.scene_normals(sp), K,
+            torch.from_numpy(c["init_T"]).to(dev)]
+    kw = {f: getattr(icp, f) for f in ("corr_dist", "max_iters", "coarse_gate_mult", "color_weight", "chroma_scale",
+                                       "point_weight", "lm_damping", "bilinear_iters", "coarse_points")}
+    kw.update(model_chroma=None, chroma_maps=None)
+    if color:
+        kw.update(model_chroma=torch.from_numpy(c["chroma"]).to(dev),
+                  chroma_maps=TR.scene_chroma(torch.from_numpy(c["rgb"]).to(dev)))
+    kernel = lambda: TR.icp_batch(*args, **kw)  # noqa: E731
+    plain = lambda: TR.icp_batch_plain(*args, **kw)  # noqa: E731
+    before = OI.icp_cuda.launches
+    got = kernel()
+    check(OI.icp_cuda.launches == before + 1, f"icp_batch launched the ICP kernel {OI.icp_cuda.launches - before} times")
+    want = plain()
+    for g, wt, what in zip(got, want, ("T", "fitness", "rmse")):
+        check(torch.equal(g, wt), f"ICP kernel {what} differs from icp_batch_plain ({deployment}, colour {color})")
+    k, n = c["pts"].shape[:2]
+    h, w = c["depth"].shape
+    bound = icp_bound(k, n, h, w, color, icp)
+    kern_ms = graph_ms(kernel, reps=7, inner=20)
+    fit = want[1].cpu().numpy()
+    out = {
+        "K": k, "N": n, "frame": [h, w], "color": color, "max_iters": icp.max_iters,
+        "fitness_median": float(np.median(fit)), "never_6_inliers_or_empty": int((fit == 0).sum()),
+        "kernel_ms": kern_ms,
+        "kernel_eager_ms": cuda_ms(kernel, reps=7, inner=20),
+        "plain_ms": graph_ms(plain, reps=3, inner=1),
+        "library_ms": "none",
+        "kernels_per_call": kernel_launches(kernel),
+        "plain_kernels_per_call": kernel_launches(plain),
+        "host_us_per_call": host_us(kernel, n=200),
+        "plain_host_us_per_call": host_us(plain, n=3),
+        "bound": bound,
+    }
+    out["times_bound"] = kern_ms / bound["bound_ms"]
+    del got, want, args, kw
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_icp(dev) -> dict:
+    """The ICP kernel at the fused T-LESS frame's call and the LINEMOD host
+    route's, with and without colour, and at the host route's with 4,100
+    points a cloud (above a thread's registers: the kernel streams them)
+    (``time_icp``).  Its launches (timing
+    loops and profiles) are its own: the count starts from 0 and the
+    kernels line leaves them out."""
+    t0 = time.perf_counter()
+    OI.icp_cuda.launches = 0
+    cases = {"tless_fused": time_icp(dev, "tless"), "linemod_host": time_icp(dev, "linemod"),
+             "linemod_host_geometry": time_icp(dev, "linemod", color=False),
+             "linemod_host_n4100": time_icp(dev, "linemod", n=4100)}
+    torch.cuda.synchronize()
+    emit("icp", t0, nvidia_smi=nvidia_smi(), tolerance="exact (torch.equal to icp_batch_plain on the card)",
+         cases=cases, launches=OI.icp_cuda.launches,
+         method=("CUDA events, medians: kernel_ms 7 windows of 20 icp_batch calls replayed from one CUDA graph (the "
+                 "tables' packing, a few kernels, included); kernel_eager_ms the same 20 calls issued from Python; "
+                 "plain_ms 3 windows of one icp_batch_plain call replayed from a CUDA graph; kernels per call by "
+                 "torch.profiler; host_us: enqueue time a call back to back; bound: bytes once each over 3.35 TB/s "
+                 "against ICP_OPS at 67 TFLOP/s"))
     return cases
 
 
@@ -3443,8 +3593,8 @@ def main() -> int:
     emit("build", t0, kernels={n: {"seconds": round(b["seconds"], 3), "ptxas": ptxas[n]} for n, b in built.items()})
     if sys.argv[1:] == ["parallel"]:
         return parallel_only(dev, smi)
-    if sys.argv[1:] == ["coarse_score"]:
-        phase_coarse_score(dev)
+    if sys.argv[1:] in (["coarse_score"], ["icp"]):
+        (phase_coarse_score if sys.argv[1] == "coarse_score" else phase_icp)(dev)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}), flush=True)
@@ -3459,33 +3609,39 @@ def main() -> int:
     max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls, ms_call)
     full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
     coarse_cases = phase_coarse_score(dev)
-    phase_match_golden(dev)
-    launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
+    icp_cases = phase_icp(dev)
+    with counting_icp_calls("match_golden"):
+        phase_match_golden(dev)
+    with counting_icp_calls("refine_vga", least=1):
+        launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
     render_ms = phase_render(dev)
     with tempfile.TemporaryDirectory() as tmp:
         bank_path = os.path.join(tmp, "synth_bank.npz")
         train_s, train_per_class, restored = phase_train_synth(dev, bank_path)
-        refine_mc = phase_refine_mc(dev, w, pipe)
-        phase_refine_golden(dev)
-        phase_mc_golden(dev)
-        phase_ms_golden(dev)
-        with counting_coarse_calls("synth_golden"):
+        with counting_icp_calls("refine_mc", least=3):
+            refine_mc = phase_refine_mc(dev, w, pipe)
+        with counting_icp_calls("goldens"):
+            phase_refine_golden(dev)
+            phase_mc_golden(dev)
+            phase_ms_golden(dev)
+        with counting_coarse_calls("synth_golden"), counting_icp_calls("synth_golden"):
             golden_launches = phase_synth_golden(dev)
         mc_refine_launches = finish_refine_mc(refine_mc)
-        with counting_coarse_calls("synth"):
+        with counting_coarse_calls("synth"), counting_icp_calls("synth", least=1):
             synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
-    lchf_launches, _ = phase_lchf(dev)
+    with counting_icp_calls("lchf"):
+        lchf_launches, _ = phase_lchf(dev)
     check(lchf_launches == 0, f"the LCHF path launched the refine kernel {lchf_launches} times")
     seg_launches, seg_kernels = phase_seg(dev)
     t0 = time.perf_counter()
     emit("seg_golden", t0, **phase_seg_golden(dev))
-    with counting_coarse_calls("parallel"):
+    with counting_coarse_calls("parallel"), counting_icp_calls("parallel"):
         parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
-    with counting_coarse_calls("tools"):
+    with counting_coarse_calls("tools"), counting_icp_calls("tools"):
         tools = phase_tools(dev)
-    with counting_coarse_calls("bench"):
+    with counting_coarse_calls("bench"), counting_icp_calls("bench"):
         bench_launches = phase_bench(dev, cid, det, det_cpu)
-    with counting_coarse_calls("dense_route"):
+    with counting_coarse_calls("dense_route"), counting_icp_calls("dense_route"):
         dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
     check(COARSE_BY_PHASE["dense_route"] == 0, f"the bank without feature lists launched the coarse kernel "
           f"{COARSE_BY_PHASE['dense_route']} times")
@@ -3574,6 +3730,20 @@ def main() -> int:
         "bound_by": coarse_cases["tless"]["bound"]["bound_by"],
         "ptxas": ptxas["coarse_score"],
         "at_linemod_call": {k: coarse_cases["linemod"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+    }, {
+        "name": "icp",
+        "route": "cuda",
+        "source": "sixdpose_tpu_torch/csrc/icp.cu",
+        "replaces": "no TPU kernel: the JAX package's XLA program of icp_batch (sixdpose_tpu/models/refine.py), "
+                    "which the port ran as eager PyTorch, about 300 kernels an iteration",
+        "launches": sum(ICP_BY_PHASE.values()),
+        "launches_by_phase": ICP_BY_PHASE,
+        "exact_vs_plain": True,
+        **{k: icp_cases["tless_fused"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+        "bound_ms": icp_cases["tless_fused"]["bound"]["bound_ms"],
+        "bound_by": icp_cases["tless_fused"]["bound"]["bound_by"],
+        "ptxas": ptxas["icp"],
+        "at_linemod_host_call": {k: icp_cases["linemod_host"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

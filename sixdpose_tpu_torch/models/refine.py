@@ -34,6 +34,10 @@ Here the solver is written natively batched over K candidates, with
   turns a one-ulp difference into millimetres wherever ICP does not
   converge, so "close" between devices is only reachable as "equal".
 
+On the card ``icp_batch`` runs all of that as one kernel (``csrc/icp.cu``
+via ``ops/icp.py``), which repeats ``icp_batch_plain``'s operations in
+their order and so gives its bits; CPU tensors run ``icp_batch_plain``.
+
 Nothing here waits for the device.  Conventions match the reference:
 depths in mm, poses R (3, 3) + t mm, ``fitness`` the inlier fraction of
 the valid model points.
@@ -49,6 +53,7 @@ import torch.nn.functional as F
 
 from sixdpose_tpu_torch.config import IcpConfig
 from sixdpose_tpu_torch.device import resolve_device
+from sixdpose_tpu_torch.ops.icp import icp_cuda, pack_chroma, pack_scene
 from sixdpose_tpu_torch.ops.sqrt import sqrt32
 
 
@@ -293,10 +298,9 @@ class _SceneLookup:
 
     def __init__(self, scene_pts, scene_nrm, scene_K):
         self.h, self.w = scene_pts.shape[:2]
-        valid = (scene_pts[..., 2:3] > 0).to(torch.float32)
         # ONE packed (H*W, 7) table (points | normals | valid): a tap is one
         # row gather instead of three.
-        self.packed = torch.cat([scene_pts, scene_nrm, valid], dim=-1).reshape(-1, 7)
+        self.packed = pack_scene(scene_pts, scene_nrm)
         self.fx, self.fy = scene_K[0, 0], scene_K[1, 1]
         self.cx, self.cy = scene_K[0, 2], scene_K[1, 2]
 
@@ -398,10 +402,33 @@ def icp_batch(
 
     Returns (T (K, 4, 4), fitness (K,), inlier rmse (K,)).  A candidate with
     fewer than 6 inliers keeps its pose in that iteration.
+
+    CUDA tensors run the ICP kernel (``ops/icp.py``, one launch a call),
+    CPU tensors ``icp_batch_plain``; both give the same bits.
     """
+    if model_pts.is_cuda:
+        # The kernel reads dense rows (a no-op for contiguous inputs).
+        model_pts, model_valid, scene_K, init_T = (x.contiguous() for x in (model_pts, model_valid, scene_K, init_T))
+        model_chroma = None if model_chroma is None else model_chroma.contiguous()
+    run = icp_cuda if model_pts.is_cuda else icp_batch_plain
+    return run(
+        model_pts, model_valid, scene_pts, scene_nrm, scene_K, init_T, corr_dist=corr_dist, max_iters=max_iters,
+        coarse_gate_mult=coarse_gate_mult, model_chroma=model_chroma, chroma_maps=chroma_maps,
+        color_weight=color_weight, chroma_scale=chroma_scale, point_weight=point_weight, lm_damping=lm_damping,
+        bilinear_iters=bilinear_iters, coarse_points=coarse_points,
+    )
+
+
+def icp_batch_plain(model_pts, model_valid, scene_pts, scene_nrm, scene_K, init_T, *, corr_dist, max_iters,
+                    coarse_gate_mult, model_chroma, chroma_maps, color_weight, chroma_scale, point_weight, lm_damping,
+                    bilinear_iters, coarse_points):
+    """``icp_batch`` in plain tensor ops (arguments and results as there,
+    which holds the defaults): the plain version of the ICP kernel
+    (``csrc/icp.cu``), run for CPU tensors and on the card in tests and
+    ``chip_smoke.py``."""
     scene = _SceneLookup(scene_pts, scene_nrm, scene_K)
     use_color = model_chroma is not None and chroma_maps is not None
-    chr_packed = torch.cat(list(chroma_maps), dim=-1).reshape(-1, 6) if use_color else None
+    chr_packed = pack_chroma(chroma_maps) if use_color else None
     k_n = model_pts.shape[0]
     eye3 = torch.eye(3, dtype=torch.float32, device=model_pts.device)
     eye4 = torch.eye(4, dtype=torch.float32, device=model_pts.device)

@@ -394,6 +394,70 @@ def coarse_scorer_call(deployment: str, seed: int = 20):
     return maps, feats.astype(np.int32), valid, np.array(scales, np.float32), 8, ext, ext
 
 
+# One icp_batch call of a benchmark deployment: the frame, its camera, and
+# the candidates and cloud points a frame sends to ICP.
+ICP_DEPLOYMENTS = {
+    "tless": dict(frame=(540, 720), K=[[1075.65, 0.0, 360.0], [0.0, 1073.9, 270.0], [0.0, 0.0, 1.0]], k=240, n=512),
+    "linemod": dict(frame=VGA, K=BENCH_K.tolist(), k=57, n=1024),
+}
+
+
+def icp_call(deployment: str, k: int = None, n: int = None, color: bool = True, seed: int = 23) -> dict:
+    """The inputs of one ``icp_batch`` call at a benchmark deployment's
+    shape, numpy arrays: ``"tless"`` the fused frame's (720 x 540, 240
+    candidates of 512 points), ``"linemod"`` the host route's (VGA, 57 of
+    1,024); ``k`` and ``n`` override the counts.
+
+    The frame is the cluttered plane of ``planted_scene_multi`` with six
+    planted domes; candidate i takes the cloud of dome i % 6 (its pixels
+    through the camera, colours as chroma) from a start pose a few degrees
+    and millimetres off.  Every tenth candidate from the eighth starts a
+    metre off (it never reaches 6 inliers), every tenth from the tenth has
+    no valid points (an inactive slot), and every third keeps half its
+    points valid.  Returns ``rgb`` (H, W, 3) uint8, ``depth`` (H, W) int32
+    mm, ``K`` (3, 3), ``pts`` (k, n, 3), ``valid`` (k, n), ``chroma``
+    (k, n, 2) (None without colour) and ``init_T`` (k, 4, 4), float32."""
+    from sixdpose_tpu_torch.models.refine import sample_model_points
+
+    d = ICP_DEPLOYMENTS[deployment]
+    k = d["k"] if k is None else k
+    n = d["n"] if n is None else n
+    h, w = d["frame"]
+    cam = np.array(d["K"], np.float32)
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(30, 70, (h, w, 3), np.uint8)
+    depth = (900 + rng.integers(-2, 3, (h, w))).astype(np.uint16)
+    s = OBJECT_SIZE
+    spots = [(i % 3, int(x), int(y)) for i, (x, y) in enumerate(
+        zip(np.linspace(20, w - s - 20, 3).tolist() * 2, [40] * 3 + [h - s - 40] * 3))]
+    clouds = []
+    for shape_id, x, y in spots:
+        m = _paste(rgb, depth, shape_id, x, y, 850)
+        pts, val, (ys, xs) = sample_model_points(np.where(m, depth, 0), cam, n, return_pixels=True)
+        cols = rgb[ys, xs].astype(np.float32)
+        chroma = np.zeros((n, 2), np.float32)
+        chroma[: len(cols)] = cols[:, :2] / np.maximum(cols.sum(-1, keepdims=True), 1e-6)
+        clouds.append((pts, val, chroma))
+    pts = np.stack([clouds[i % 6][0] for i in range(k)])
+    valid = np.stack([clouds[i % 6][1] for i in range(k)])
+    chroma = np.stack([clouds[i % 6][2] for i in range(k)])
+    valid[2::3, n // 2 :] = False
+    valid[9::10] = False
+    init = np.tile(np.eye(4), (k, 1, 1))
+    for i in range(k):
+        axis = rng.standard_normal(3)
+        ang = np.deg2rad(rng.uniform(-4.0, 4.0))
+        kx = np.cross(np.eye(3), axis / np.linalg.norm(axis))
+        R = np.eye(3) + np.sin(ang) * kx + (1 - np.cos(ang)) * kx @ kx
+        c = pts[i][valid[i]].mean(0) if valid[i].any() else np.zeros(3)
+        init[i, :3, :3] = R
+        init[i, :3, 3] = c - R @ c + rng.uniform(-0.006, 0.006, 3)
+    init[7::10, :3, 3] += [1.0, 0.6, 0.0]
+    return {"rgb": rgb, "depth": depth.astype(np.int32), "K": cam, "pts": np.ascontiguousarray(pts),
+            "valid": np.ascontiguousarray(valid), "chroma": np.ascontiguousarray(chroma) if color else None,
+            "init_T": init.astype(np.float32)}
+
+
 def _resize_nearest(a: np.ndarray, scale: float) -> np.ndarray:
     """Nearest-neighbour resize of the first two axes by ``scale``: output
     pixel i samples input pixel floor((i + 0.5) / scale)."""

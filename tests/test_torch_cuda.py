@@ -245,6 +245,96 @@ def test_scene_maps_and_icp_batch_on_card_equal_cpu(cuda):
     assert (fit_c > 0.8).all()
 
 
+# The ICP kernel's shapes: the fused frame's call (K 240, N 512, colour),
+# the host route's (N 1,024, K 1, 57, 63, colour on and off), a cloud that
+# is not a power of two (with the coarse subset at 64), one below a block
+# (256 threads), one of 2,000 points (8 a thread), clouds above 2,048 that
+# the kernel streams from memory, and schedules above the 128 iterations
+# the launch arguments hold.  synthetic.icp_call makes candidates 7, 17,
+# ... start a metre off (never 6 inliers) and 9, 19, ... without valid
+# points.
+ICP_CASES = {
+    "tless_K240_N512_color": ("tless", 240, 512, True, {}),
+    "linemod_K1_N1024_color": ("linemod", 1, 1024, True, {}),
+    "linemod_K1_N1024_geometry": ("linemod", 1, 1024, False, {}),
+    "linemod_K57_N1024_color": ("linemod", 57, 1024, True, {}),
+    "linemod_K57_N1024_geometry": ("linemod", 57, 1024, False, {}),
+    "linemod_K63_N1024_color": ("linemod", 63, 1024, True, {}),
+    "linemod_K63_N1024_geometry": ("linemod", 63, 1024, False, {}),
+    "linemod_K13_N337_color_coarse64": ("linemod", 13, 337, True, dict(max_iters=16, bilinear_iters=6, coarse_points=64)),
+    "tless_K12_N100_geometry": ("tless", 12, 100, False, dict(max_iters=12)),
+    "tless_K12_N2000_color": ("tless", 12, 2000, True, {}),
+    "tless_K12_N2049_color": ("tless", 12, 2049, True, {}),
+    "linemod_K12_N4100_geometry_coarse64": ("linemod", 12, 4100, False, dict(coarse_points=64)),
+    "tless_K12_N512_color_iters130": ("tless", 12, 512, True, dict(max_iters=130)),
+    "linemod_K10_N3000_color_iters129": ("linemod", 10, 3000, True, dict(max_iters=129)),
+}
+
+
+def _icp_args(deployment, k, n, color, device):
+    from sixdpose_tpu_torch.config import IcpConfig
+    from sixdpose_tpu_torch.models import refine as TR
+
+    c = synthetic.icp_call(deployment, k=k, n=n, color=color)
+    K = torch.from_numpy(c["K"]).to(device)
+    sp = TR.backproject(torch.from_numpy(c["depth"]).to(device), K)
+    args = [torch.from_numpy(c["pts"]).to(device), torch.from_numpy(c["valid"]).to(device), sp, TR.scene_normals(sp),
+            K, torch.from_numpy(c["init_T"]).to(device)]
+    cfg = IcpConfig()
+    kw = {f: getattr(cfg, f) for f in ("corr_dist", "max_iters", "coarse_gate_mult", "color_weight", "chroma_scale",
+                                       "point_weight", "lm_damping", "bilinear_iters", "coarse_points")}
+    kw.update(model_chroma=None, chroma_maps=None)
+    if color:
+        kw.update(model_chroma=torch.from_numpy(c["chroma"]).to(device),
+                  chroma_maps=TR.scene_chroma(torch.from_numpy(c["rgb"]).to(device)))
+    return args, kw
+
+
+@pytest.mark.parametrize("name", list(ICP_CASES))
+def test_icp_kernel_equals_plain_on_card(cuda, name):
+    """``icp_batch`` on the card (the ICP kernel, one launch by the
+    wrapper's counter) gives T, fitness and rmse equal to the bit to
+    ``icp_batch_plain`` on the card, degenerate candidates included."""
+    from sixdpose_tpu_torch.models import refine as TR
+    from sixdpose_tpu_torch.ops import icp as OI
+
+    deployment, k, n, color, extra = ICP_CASES[name]
+    args, kw = _icp_args(deployment, k, n, color, cuda)
+    kw.update(extra)
+    before = OI.icp_cuda.launches
+    got = TR.icp_batch(*args, **kw)
+    assert OI.icp_cuda.launches == before + 1
+    want = TR.icp_batch_plain(*args, **kw)
+    torch.cuda.synchronize()
+    for g, w, what in zip(got, want, ("T", "fitness", "rmse")):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(g, w), (what, float((g - w).abs().max()))
+    fit = want[1].cpu().numpy()
+    off = np.isin(np.arange(k) % 10, (7, 9))  # a metre off; no valid points
+    assert (fit[off] == 0.0).all() and (fit[~off] > 0.5).all(), fit
+
+
+def test_icp_batch_takes_strided_inputs_on_card(cuda):
+    """``icp_batch`` on the card takes strided inputs (one cloud expanded
+    over the candidates, as ``parallel/fused.py`` passes it; a transposed
+    copy of the start poses) in one launch, with the plain version's bits."""
+    from sixdpose_tpu_torch.models import refine as TR
+    from sixdpose_tpu_torch.ops import icp as OI
+
+    args, kw = _icp_args("linemod", 12, 1024, True, cuda)
+    pts, valid = args[0][:1].expand(12, -1, -1), args[1][:1].expand(12, -1)
+    init_T = args[5].transpose(1, 2).contiguous().transpose(1, 2)
+    kw["model_chroma"] = kw["model_chroma"][:1].expand(12, -1, -1)
+    assert not any(x.is_contiguous() for x in (pts, valid, init_T, kw["model_chroma"]))
+    call = (pts, valid, *args[2:5], init_T)
+    before = OI.icp_cuda.launches
+    got = TR.icp_batch(*call, **kw)
+    assert OI.icp_cuda.launches == before + 1
+    want = TR.icp_batch_plain(*call, **kw)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
 @pytest.mark.parametrize("zscore", [False, True])
 def test_verify_poses_multi_on_card_equals_cpu(cuda, zscore):
     from sixdpose_tpu_torch.models import refine as TR
