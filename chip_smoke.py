@@ -72,8 +72,7 @@ non-zero:
 4. match_mc: ``MultiClassMatcher`` on the multi-class workload at 55 and
    at 30 (every class fills its 128 candidates: a pool of 1152 in one
    refine launch), launch counts set to 0 just before and read just after;
-   the coarse branch taken and its multiply-adds, one coarse-kernel launch
-   per feature-list coarse call; equal to the CPU run;
+   one coarse-kernel launch per frame; equal to the CPU run;
 5. match_ms: ``MultiScaleMultiClass`` on the multi-scale workload at 70 and
    at 30 (every class fills its 128 candidates: a scaled pool of 1920 in
    one refine launch), and ``MultiScaleDetector`` on every class, launch
@@ -87,18 +86,19 @@ non-zero:
    levelup maximum F = 8191 and at F = 9000 (two table passes), and at the
    inputs the main paths gave it (bench B=1 and B=4, the multi-class pool,
    the scaled multi-scale pool);
-7. coarse_matmul: the coarse scorer on the card (the coarse-scorer
-   kernel) against the CPU's matmul route and against the dense conv of
-   kernels built from the same features, at the
-   full-width bank (scale 1, and four scales one of them 0), and at the
-   LINEMOD-scale VGA call (15 x 337 templates, about 2e11 multiply-adds;
-   against the conv on the card only);
+7. coarse_parity: the coarse scorer on the card (the coarse-scorer
+   kernel) against its plain version on the CPU and against the dense conv
+   of kernels built from the same features, at the full-width bank (scale
+   1, and four scales one of them 0), and at the LINEMOD-scale VGA call
+   (15 x 337 templates; against the conv on the card only);
 7b. coarse_score: the coarse-scorer kernel (``csrc/coarse_score.cu``) at
    the T-LESS and LINEMOD benchmark deployments' coarse calls
-   (``synthetic.coarse_scorer_call``): equal to the card's matmul route and
-   to its plain gather-sum, raw and counts; its time replayed from CUDA
-   graphs and launched from Python, beside the bound, the plain version's
-   time and that of the per-bucket ``addmm`` route it replaces;
+   (``synthetic.coarse_scorer_call``): equal to its plain gather-sum on the
+   card, raw and counts; its time replayed from CUDA graphs and launched
+   from Python, beside the bound, the plain version's time and that of the
+   dense conv it stands in for (``time_dense_conv``); and the crossover
+   sweep (``time_crossover``): the kernel against the dense conv at the
+   bench bank's 89 templates and at 300 and 1,152;
 7c. icp: the ICP kernel (``csrc/icp.cu``) at the fused T-LESS frame's
    call (240 candidates x 512 points, colour) and the LINEMOD host route's
    (57 x 1,024, colour on and off, and 57 x 4,100 with colour;
@@ -243,11 +243,11 @@ non-zero:
    the fused multi-class frame (whole and by stage, with bounds), the
    kernel at the multi-class call (and one grouped conv there), and the
    coarse scorer at full width and at the LINEMOD-scale call beside its
-   bound, the dense conv and the same product as one ``torch.matmul``.
+   bound and the dense conv.
    Under ``multiscale``: the one-pass frame and the single-class frame,
    whole and by stage (pyramid, proposals, coarse sweep, selection, refine,
-   sort and NMS), the coarse sweep beside its bound, one ``torch.matmul`` of the same product and the
-   dense conv of scaled kernels, and the kernel at the K=1920 scaled call
+   sort and NMS), the coarse sweep beside its bound and the dense conv of
+   scaled kernels, and the kernel at the K=1920 scaled call
    beside its bound, its plain version and one grouped conv.
    Under ``synth``: the service's stage times per served frame, device ms
    per fused frame, render ms per 16-view batch and training seconds per
@@ -354,21 +354,15 @@ from sixdpose_tpu_torch.ops import quantize as Q
 from sixdpose_tpu_torch.ops import segment_sum as SS
 from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
-    _bucket_slices,
-    _bucket_weights,
     _feature_table,
     _local_conv_operands,
     _s2d_kernels,
-    _s2d_maps,
-    bucket_table,
     build_kernels_scaled,
-    build_template_kernels,
     similarity_dense,
     similarity_dense_pre_s2d,
     similarity_local,
     similarity_local_sparse,
     similarity_multiscale_auto,
-    similarity_multiscale_matmul,
     similarity_multiscale_sparse,
 )
 from sixdpose_tpu_torch.seg import DaspConfig as SegConfig
@@ -801,13 +795,8 @@ def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
         torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == len(calls) == 2 * len(thresholds) and launches > 0, f"refine launches {launches} for {len(calls)} calls")
-    kern = mc.bank.kernels[-1]
-    coarse = len(w["cfg"].t_at_level) - 1
-    maps_shape = (16,) + tuple(s >> coarse for s in w["rgb"].shape[:2])
-    macs = D.coarse_macs(maps_shape, kern.shape, w["cfg"].t_at_level[-1])
-    branch = "matmul" if macs > D._MATMUL_MACS else "dense"
-    check(len(coarse_calls) == (2 * len(thresholds) if branch == "matmul" else 0),
-          f"coarse branch {branch} at {macs} MACs, {len(coarse_calls)} feature-list coarse calls")
+    check(len(coarse_calls) == 2 * len(thresholds), f"{len(coarse_calls)} feature-list coarse calls in "
+          f"{2 * len(thresholds)} frames")
     cpu = {thr: mc_cpu.match_arrays(w["rgb"], w["depth"], thr) for thr in thresholds}
     for thr in thresholds:
         check(all(torch.equal(g.cpu(), c) for g, c in zip(gpu[thr], cpu[thr])),
@@ -815,8 +804,7 @@ def phase_match_mc(dev, w, mc, mc_cpu, setup_s: float):
     live = {str(thr): (gpu[thr][3] >= 0).sum(1).tolist() for thr in thresholds}
     check(min(live[str(LOW_THRESHOLD)]) == w["cfg"].top_k, f"not every class fills its candidates at {LOW_THRESHOLD}: {live}")
     emit("match_mc", t0, setup_seconds=round(setup_s, 3), classes=len(mc.class_ids), templates=int(mc.bank.nfeats[0].numel()),
-         frame=list(w["rgb"].shape), coarse_branch=branch, coarse_conv_macs=macs, macs_line=D._MATMUL_MACS,
-         launches=launches, coarse_launches=COARSE_BY_PHASE["match_mc"], live_into_kernel=[int(c["active"].sum()) for c in calls],
+         frame=list(w["rgb"].shape), launches=launches, coarse_launches=COARSE_BY_PHASE["match_mc"], live_into_kernel=[int(c["active"].sum()) for c in calls],
          kernel_call={"maps": list(calls[-1]["maps"].shape), "feats": list(calls[-1]["feats"].shape), "t": calls[-1]["t"]},
          thresholds=list(thresholds), live_per_class=live, matches={str(t): len(m) for t, m in matches.items()},
          gpu_equals_cpu=True)
@@ -836,41 +824,70 @@ def scorer_bound(maps, feats, nfeat, ho_wo: int, n_scales: int = 1) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_scorer(maps, feats, valid, kern, t: int) -> dict:
-    """The coarse scorer at scale 1 on one call's inputs (CUDA events over
-    whole eager calls): the coarse-scorer kernel, beside its bound, the
-    dense conv it stands in for below ``_MATMUL_MACS``, and the same product
-    as one ``torch.matmul`` (W as one (S*N, bh*ct2) matrix against the
-    stacked bucket slices)."""
-    kh, kw = kern.shape[-2:]
+def time_dense_conv(maps, feats, valid, scales, t: int, kh: int, kw: int, raw, rows: int = 2048) -> float:
+    """The dense conv the coarse-scorer kernel stands in for, on one call's
+    inputs (C, H, W): ``similarity_dense_pre_s2d`` over one-hot kernels of
+    the call's features at each scale above 0 (``build_kernels_scaled``,
+    space to depth, built outside the timed calls), ``rows`` templates a
+    conv so the float32 kernels fit; each conv checked against the kernel's
+    ``raw`` rows.  Returns the summed medians of 3 CUDA-event-timed eager
+    calls a conv."""
+    n, total = feats.shape[0], 0.0
+    for s, sc in enumerate(scales.tolist()):
+        if sc <= 0:  # no proposal: the kernel writes zeros without reading the maps
+            continue
+        for i in range(0, n, rows):
+            kern = _s2d_kernels(build_kernels_scaled(feats[i : i + rows], valid[i : i + rows], sc, kh, kw,
+                                                     maps.shape[-3]), t)
+            conv = lambda: similarity_dense_pre_s2d(maps, kern, t)  # noqa: E731
+            want = raw[s * n + i : s * n + i + kern.shape[0]]
+            check(torch.equal(conv(), want), f"the dense conv differs from the coarse kernel (scale {sc}, rows {i}-)")
+            total += cuda_ms(conv, reps=3)
+            del kern, want
+    torch.cuda.empty_cache()
+    return total
+
+
+def time_scorer(maps, feats, valid, t: int, kh: int, kw: int) -> dict:
+    """The coarse scorer at scale 1 on one call's inputs: the coarse-scorer
+    kernel (CUDA events over whole eager calls) beside its bound and the
+    dense conv it stands in for (``time_dense_conv``)."""
     one = torch.ones((1,), dtype=torch.float32, device=maps.device)
-    raw, nf = similarity_multiscale_auto(maps, feats, valid, one, t, kh, kw)
-    khb, kwb = -(-kh // t), -(-kw // t)
-    s2d = _s2d_maps(maps[None], t)
-    slices = _bucket_slices(s2d, khb, kwb)
-    bh, ct2, p = slices.shape
-    w = _bucket_weights(*bucket_table(feats, valid, one, t, kh, kw), bh, ct2)
-    lhs, rhs = w.transpose(0, 1).reshape(w.shape[1], bh * ct2), slices.reshape(bh * ct2, p)
-    check(torch.equal(torch.matmul(lhs, rhs).reshape(raw.shape), raw), "one matmul of the same product differs")
-    bound = scorer_bound(maps, feats, nf, p)
-    dense_flops = 2 * bh * w.shape[1] * ct2 * p
-    bound["dense_matmul_floor_ms"] = dense_flops / FP32_OPS_PER_S * 1e3
+    scorer = lambda: similarity_multiscale_auto(maps, feats, valid, one, t, kh, kw)  # noqa: E731
+    raw, nf = scorer()
     return {
         "maps": list(maps.shape), "templates": int(feats.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
-        "buckets": bh, "w_bytes": w.numel() * 4,
-        "scorer_ms": cuda_ms(lambda: similarity_multiscale_auto(maps, feats, valid, one, t, kh, kw), reps=10),
-        "dense_conv_ms": cuda_ms(lambda: similarity_dense(maps, kern, t), reps=10),
-        "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=10),
-        "bound": bound,
+        "scorer_ms": cuda_ms(scorer, reps=10),
+        "library_ms": time_dense_conv(maps, feats, valid, one, t, kh, kw, raw),
+        "bound": scorer_bound(maps, feats, nf, raw.shape[-2] * raw.shape[-1]),
     }
 
 
+def time_crossover(dev) -> dict:
+    """The coarse route's crossover on the card (``time_scorer``, kernel
+    against dense conv) on the bench frame's level-1 maps: at the bench
+    bank (89 templates) and at 300 and 1,152 templates, the bench bank's
+    feature lists repeated."""
+    cid, templates, rgb, dep = synthetic.bench_bank()
+    det = Detector(BENCH_CFG, device=dev)
+    for tl in templates:
+        det.bank.add_template_levels(cid, tl)
+    bank = det.device_bank(cid)
+    maps = det.build_response_pyramid(rgb, dep)[-1]
+    feats, valid = bank.feats[-1], bank.valids[-1]
+    out = {}
+    for n in (feats.shape[0], 300, 1152):
+        rows = torch.arange(n, device=dev) % feats.shape[0]
+        out[str(n)] = time_scorer(maps, feats[rows].contiguous(), valid[rows].contiguous(), BENCH_CFG.t_at_level[-1],
+                                  *bank.kdims[-1])
+    return out
+
+
 def linemod_scale_case(dev, n: int = 15 * 337):
-    """The LINEMOD-scale coarse call the JAX comments size the matmul scorer
-    for (15 classes x 337 templates, VGA, ``sixdpose_tpu/models/
-    multiclass.py:80``): level-1 response maps of a VGA frame (the bench
-    frame's), ``n`` templates of 32 features in a 46 x 46 extent, t = 8
-    (about 2e11 multiply-adds as a dense conv)."""
+    """A LINEMOD-scale coarse call (15 classes x 337 templates, VGA,
+    ``sixdpose_tpu/models/multiclass.py:80``): level-1 response maps of a
+    VGA frame (the bench frame's), ``n`` templates of 32 features in a 46 x
+    46 extent, t = 8."""
     cid, templates, rgb, dep = synthetic.bench_bank(num_templates=1)
     det = Detector(BENCH_CFG, device=dev)
     det.bank.add_template_levels(cid, templates[0])
@@ -879,26 +896,27 @@ def linemod_scale_case(dev, n: int = 15 * 337):
     f, ext = 32, 46
     feats = np.stack([rng.integers(0, ext, (n, f)), rng.integers(0, ext, (n, f)), rng.integers(0, 16, (n, f))], -1)
     valid = rng.random((n, f)) < 0.95
-    kern = build_template_kernels(feats, valid, ext, ext, 16)
     to = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    return maps, to(feats.astype(np.int32)), to(valid), to(kern)
+    return maps, to(feats.astype(np.int32)), to(valid), 8, ext, ext
 
 
-def phase_coarse_matmul(dev, w, mc, mc_cpu):
-    """The coarse scorer on the card (the coarse-scorer kernel) against the
-    CPU's matmul route and against the dense conv of kernels built from the
-    same features: at the full-width bank (scale 1, and four scales one of
-    them 0), and at the LINEMOD-scale VGA call (card only)."""
+def phase_coarse_parity(dev, w, mc, mc_cpu):
+    """The coarse scorer on the card (the coarse-scorer kernel) against its
+    plain version on the CPU and against the dense conv of kernels built
+    from the same features: at the full-width bank (scale 1, and four
+    scales one of them 0), and at the LINEMOD-scale VGA call (card only).
+    Returns both calls' inputs (maps, feats, valid, t, kh, kw)."""
     t0 = time.perf_counter()
     maps = mc.response_pyramid(w["rgb"], w["depth"])[-1]
     t_c = w["cfg"].t_at_level[-1]
-    feats, valid, kern = mc.bank.feats[-1], mc.bank.valids[-1], mc.bank.kernels[-1]
-    kh, kw = kern.shape[-2:]
+    feats, valid = mc.bank.feats[-1], mc.bank.valids[-1]
+    kh, kw = mc.bank.kdims[-1]
+    kern = build_kernels_scaled(feats, valid, 1.0, kh, kw, maps.shape[0])
     results = {}
     for name, scales in (("full_width_scale1", [1.0]), ("full_width_4_scales", [0.8, 1.0, 0.0, 1.2])):
         sc = torch.tensor(scales, dtype=torch.float32)
         g = similarity_multiscale_auto(maps, feats, valid, sc.to(dev), t_c, kh, kw)
-        c = similarity_multiscale_matmul(maps.cpu(), mc_cpu.bank.feats[-1], mc_cpu.bank.valids[-1], sc, t_c, kh, kw)
+        c = similarity_multiscale_auto(maps.cpu(), mc_cpu.bank.feats[-1], mc_cpu.bank.valids[-1], sc, t_c, kh, kw)
         check(torch.equal(g[0].cpu(), c[0]) and torch.equal(g[1].cpu(), c[1]), f"coarse scorer GPU differs from CPU ({name})")
         n = feats.shape[0]
         i1 = scales.index(1.0) * n
@@ -908,33 +926,35 @@ def phase_coarse_matmul(dev, w, mc, mc_cpu):
             i0 = scales.index(0.0) * n
             check(not g[0][i0 : i0 + n].any() and not g[1][i0 : i0 + n].any(), "scale 0 scored something")
         results[name] = {"raw": list(g[0].shape), "gpu_equals_cpu": True, "scale1_equals_dense": True}
-    lm_maps, lm_feats, lm_valid, lm_kern = linemod_scale_case(dev)
-    lm = similarity_multiscale_auto(lm_maps, lm_feats, lm_valid, torch.ones(1, device=dev), 8, *lm_kern.shape[-2:])
+    del kern
+    lm_case = linemod_scale_case(dev)
+    lm_maps, lm_feats, lm_valid, _, ext, _ = lm_case
+    lm = similarity_multiscale_auto(lm_maps, lm_feats, lm_valid, torch.ones(1, device=dev), 8, ext, ext)
+    lm_kern = build_kernels_scaled(lm_feats, lm_valid, 1.0, ext, ext, lm_maps.shape[0])
     check(torch.equal(lm[0], similarity_dense(lm_maps, lm_kern, 8)), "LINEMOD-scale coarse scorer differs from the dense conv")
-    macs = D.coarse_macs(lm_maps.shape, lm_kern.shape, 8)
-    results["linemod_15x337_vga_scale1"] = {"raw": list(lm[0].shape), "coarse_conv_macs": macs, "equals_dense": True}
+    results["linemod_15x337_vga_scale1"] = {"raw": list(lm[0].shape), "equals_dense": True}
+    del lm_kern
     torch.cuda.synchronize()
-    emit("coarse_matmul", t0, tolerance="exact (integer sums in float32)", cases=results)
-    return (maps, feats, valid, kern, t_c), (lm_maps, lm_feats, lm_valid, lm_kern, 8)
+    emit("coarse_parity", t0, tolerance="exact (integer sums in float32)", cases=results)
+    return (maps, feats, valid, t_c, kh, kw), lm_case
 
 
 
 def time_coarse(dev, deployment: str) -> dict:
     """The coarse-scorer kernel at a benchmark deployment's coarse call
-    (``synthetic.coarse_scorer_call``): equal to the card's matmul route
-    and to the plain gather-sum, raw and counts; then its time replayed
-    from a CUDA graph (20 calls a window) and launched from Python, beside
-    the bound, the plain version's time and that of the per-bucket
-    ``addmm`` route it replaces (``similarity_multiscale_matmul``, one call
-    a window, replayed from a CUDA graph too)."""
+    (``synthetic.coarse_scorer_call``): equal to the plain gather-sum on
+    the card, raw and counts; then its time replayed from a CUDA graph (20
+    calls a window) and launched from Python, beside the bound, the plain
+    version's time (one call a window, replayed from a CUDA graph too) and
+    that of the dense conv it stands in for (``time_dense_conv``)."""
     call = synthetic.coarse_scorer_call(deployment)
     args = [torch.from_numpy(a).to(dev) for a in call[:4]] + list(call[4:])
     kernel = lambda: CS.similarity_multiscale_cuda(*args)  # noqa: E731
     raw, nf = kernel()
-    for name, fn in (("matmul route", similarity_multiscale_matmul), ("plain gather-sum", similarity_multiscale_sparse)):
-        want = fn(*args)
-        check(torch.equal(raw, want[0]) and torch.equal(nf, want[1]), f"coarse kernel differs from the {name} ({deployment})")
-        del want
+    want = similarity_multiscale_sparse(*args)
+    check(torch.equal(raw, want[0]) and torch.equal(nf, want[1]), f"coarse kernel differs from the plain gather-sum "
+          f"({deployment})")
+    del want
     p = raw.shape[-2] * raw.shape[-1]
     bound = scorer_bound(args[0], args[1], nf, p, n_scales=args[3].numel())
     kern_ms = graph_ms(kernel, reps=7, inner=20)
@@ -944,7 +964,7 @@ def time_coarse(dev, deployment: str) -> dict:
         "kernel_ms": kern_ms,
         "kernel_eager_ms": cuda_ms(kernel, reps=7, inner=20),
         "plain_ms": graph_ms(lambda: similarity_multiscale_sparse(*args), reps=3, inner=1),
-        "library_ms": graph_ms(lambda: similarity_multiscale_matmul(*args), reps=3, inner=1),
+        "library_ms": time_dense_conv(*args, raw),
         "bound": bound,
     }
     out["lookups_per_ns"] = out["lookups"] / (kern_ms * 1e6)
@@ -960,13 +980,16 @@ def phase_coarse_score(dev) -> dict:
     t0 = time.perf_counter()
     CS.similarity_multiscale_cuda.launches = 0
     cases = {name: time_coarse(dev, name) for name in ("tless", "linemod")}
+    crossover = time_crossover(dev)
     torch.cuda.synchronize()
     emit("coarse_score", t0, nvidia_smi=nvidia_smi(), tolerance="exact (integer sums in float32)", cases=cases,
-         launches=CS.similarity_multiscale_cuda.launches,
+         crossover=crossover, launches=CS.similarity_multiscale_cuda.launches,
          method=("CUDA events, medians: kernel_ms 7 windows of 20 calls replayed from one CUDA graph (warm L2); "
-                 "kernel_eager_ms the same 20 calls issued from Python; plain_ms and library_ms 3 windows of one "
-                 "call replayed from a CUDA graph; bound: bytes once each over 3.35 TB/s against one add per counted "
-                 "feature and placement at 67 TFLOP/s"))
+                 "kernel_eager_ms the same 20 calls issued from Python; plain_ms 3 windows of one call replayed "
+                 "from a CUDA graph; library_ms the dense conv (cuDNN, float32 one-hot kernels built outside the "
+                 "timed calls, 2,048 templates a conv), 3 eager calls a conv, summed; crossover: scorer_ms 10 "
+                 "eager calls, library_ms as above; bound: bytes once each over 3.35 TB/s against one add per "
+                 "counted feature and placement at 67 TFLOP/s"))
     return cases
 
 
@@ -1109,7 +1132,7 @@ def phase_refine_mc(dev, w, pipe):
         torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == len(thresholds) + 1, f"{launches} refine kernel launches in {len(thresholds) + 1} frames")
-    # The full-width bank's coarse level is above _MATMUL_MACS (match_mc): one feature-list call a frame.
+    # A feature-list bank: one coarse-kernel call a frame.
     check(len(coarse_calls) == len(thresholds) + 1, f"{len(coarse_calls)} feature-list coarse calls in "
           f"{len(thresholds) + 1} frames")
     gpu_s = time.perf_counter() - t0
@@ -1339,10 +1362,9 @@ def ms_stage_events(marks: list):
 
 def time_sweep(mc, rgb_t, dep_t, cfg) -> dict:
     """The full-width frame's coarse sweep (15 x 337 templates at 5
-    proposals, the coarse-scorer kernel) beside its bound, the same product
-    as one ``torch.matmul`` and the dense conv of ``build_kernels_scaled``
-    kernels (CUDA events over whole eager calls; each checked against the
-    sweep)."""
+    proposals, the coarse-scorer kernel; CUDA events over whole eager
+    calls) beside its bound and the dense conv of scaled kernels
+    (``time_dense_conv``, over the valid proposals)."""
     t = cfg.t_at_level[-1]
     pyr = D.frame_response_pyramid(rgb_t, dep_t, cfg, rgb_t.device)
     _, _, valid, scales = M.proposals(dep_t, mc.bin_scales, mc.num_scales, mc.bins)
@@ -1350,32 +1372,16 @@ def time_sweep(mc, rgb_t, dep_t, cfg) -> dict:
     maps = torch.nn.functional.pad(pyr[-1], (0, qb * t, 0, pb * t))
     feats, valid_f = mc.bank.feats[-1], mc.bank.valids[-1]
     kh, kw = mc.bank.kdims[-1]
-    khb, kwb = -(-kh // t), -(-kw // t)
     scorer = lambda: similarity_multiscale_auto(maps, feats, valid_f, scales, t, kh, kw)  # noqa: E731
     raw, nf = scorer()
-    rows_ok = valid[:, None].expand(len(scales), feats.shape[0]).reshape(-1)
-    slices = _bucket_slices(_s2d_maps(maps[None], t), khb, kwb)
-    bh, ct2, p = slices.shape
-    w_b = _bucket_weights(*bucket_table(feats, valid_f, scales, t, kh, kw), bh, ct2)
-    lhs, rhs = w_b.transpose(0, 1).reshape(w_b.shape[1], bh * ct2), slices.reshape(bh * ct2, p)
-    del w_b
-    check(torch.equal(torch.matmul(lhs, rhs).reshape(raw.shape), raw), "one matmul of the same product differs")
-    out = {
+    p = raw.shape[-2] * raw.shape[-1]
+    return {
         "maps": list(maps.shape), "rows": int(raw.shape[0]), "F": int(feats.shape[1]), "kernel": [kh, kw], "t": t,
-        "buckets": bh, "placements": p, "w_bytes_float32": lhs.numel() * 4,
+        "placements": p,
         "scorer_ms": cuda_ms(scorer, reps=5),
-        "library_one_matmul_ms": cuda_ms(lambda: torch.matmul(lhs, rhs), reps=5),
+        "library_ms": time_dense_conv(maps, feats, valid_f, torch.where(valid, scales, 0.0), t, kh, kw, raw),
         "bound": scorer_bound(maps, feats, nf, p),
     }
-    out["bound"]["dense_matmul_floor_ms"] = 2 * bh * lhs.shape[0] * ct2 * p / FP32_OPS_PER_S * 1e3
-    del lhs
-    kern = torch.cat([_s2d_kernels(build_kernels_scaled(feats, valid_f, sc, kh, kw, maps.shape[0]), t) for sc in scales])
-    dense = similarity_dense_pre_s2d(maps, kern, t)
-    check(torch.equal(dense[rows_ok], raw[rows_ok]), "the dense conv of scaled kernels differs from the sweep")
-    out["dense_conv_ms"] = cuda_ms(lambda: similarity_dense_pre_s2d(maps, kern, t), reps=3)
-    del kern, dense
-    torch.cuda.empty_cache()
-    return out
 
 
 def time_refine_library(c, kh: int, kw: int, reps: int = 3, inner: int = 1) -> float:
@@ -1686,7 +1692,7 @@ def timing_multiclass(dev, w, mc, pipe, mc_call, full_case, lm_case) -> dict:
     out["fused_frame_bounds"] = bounds
     out["icp_candidates"] = k
     out["refine_kernel_K1152"] = time_refine(mc_call)
-    out["refine_kernel_K1152"]["library_grouped_conv_ms"] = time_refine_library(mc_call, *mc.bank.kernels[0].shape[-2:])
+    out["refine_kernel_K1152"]["library_grouped_conv_ms"] = time_refine_library(mc_call, *mc.bank.kdims[0])
     out["coarse_scorer"] = {"full_width": time_scorer(*full_case), "linemod_15x337_vga": time_scorer(*lm_case)}
     return out
 
@@ -1722,7 +1728,7 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
     refine = {"B1_level0": time_refine(c), "B4_level0": time_refine(c4), "pool_K1020_F136": time_refine(pool_case)}
     # At the B=1 call, one PyTorch call computing the same function: the
     # grouped conv of similarity_local over the candidates' kernels.
-    lib_ms = time_refine_library(c, *bank.kernels[0].shape[-2:], reps=7, inner=3)
+    lib_ms = time_refine_library(c, *bank.kdims[0], reps=7, inner=3)
     refine["B1_level0"]["library_grouped_conv_ms"] = lib_ms
     emit(
         "timing", t0, nvidia_smi=nvidia_smi(),
@@ -1738,9 +1744,9 @@ def phase_timing(dev, cid, det, frames, depths, calls, pool_case, refine_stage, 
                 "for the stage split, which records an event at each stage boundary); refine: 100 (kernel), "
                 "10 (plain) or 3 (conv) calls replayed from one CUDA graph per window, warm L2 as on the "
                 "main path; kernel_eager_ms: the same 100 launches issued from Python; multiclass: match frame 10, "
-                "fused frame and its stage split 5 whole eager calls, coarse scorer, dense conv and one matmul 10 "
-                "eager calls, grouped conv at K=1152 1 call replayed from one CUDA graph; multiscale: frames and their "
-                "stage split 5 whole eager calls, coarse sweep and one matmul 5 eager calls, dense conv 3, kernel as "
+                "fused frame and its stage split 5 whole eager calls, coarse scorer 10 eager calls, dense conv 3 "
+                "eager calls a 2,048-template conv, summed, grouped conv at K=1152 1 call replayed from one CUDA graph; multiscale: frames and their "
+                "stage split 5 whole eager calls, coarse sweep 5 eager calls, dense conv as above, kernel as "
                 "refine, grouped conv 1 call replayed from one CUDA graph; synth: the service's host stage means over "
                 "the 20 served frames (ServiceMetrics), device ms per fused frame the median of 10 CUDA-event "
                 "windows (benchmark.fused_device_ms_per_frame), render the median of 10 eager 16-view batches, "
@@ -2949,7 +2955,7 @@ def mesh_in_one_process(job, dev) -> list:
             bank = shard_bank(job["levels"], n_t, s, dev)
             tid, x, y, score, _ = detect_frame_core(rgb, dep, bank, cfg, thr, apply_nms=False)
             wh = bank.whs[0][tid.long()]
-            fields = [tid + s * bank.kernels[0].shape[0], x, y, score, wh[..., 0], wh[..., 1]]
+            fields = [tid + s * bank.nfeats[0].shape[0], x, y, score, wh[..., 0], wh[..., 1]]
             parts.append(torch.stack([f.to(torch.float64) for f in fields], dim=-2))
         merged = merge_topk(torch.stack(parts, dim=1), cfg.top_k)  # (B, 6, K)
         mtid, mx, my, mw, mh = (merged[:, i].to(torch.int32) for i in (0, 1, 2, 4, 5))
@@ -2959,7 +2965,7 @@ def mesh_in_one_process(job, dev) -> list:
     n = job["mesh"][2]
     slab = rgb.shape[0] // n
     bank = bank_levels_from_numpy(job["levels"], dev)
-    halo = min(required_halo(cfg, bank.kernels[0].shape[2]), slab * (n - 1))
+    halo = min(required_halo(cfg, bank.kdims[0][0]), slab * (n - 1))
     rgb_p = torch.nn.functional.pad(rgb, (0, 0, 0, 0, halo, halo))
     dep_p = torch.nn.functional.pad(dep, (0, 0, halo, halo))
     parts = []
@@ -2989,9 +2995,10 @@ def checkpoint_checks(job, card: list, cpu: list, i: int, levels) -> dict:
             res = runs[r][i]
             want = shard_bank(levels, shards, res["coordinate"][1], "cpu")
             got = res["restore"]["levels"]
-            check(all(np.array_equal(a, b.numpy()) and a.dtype == b.numpy().dtype
-                      for lv, wk, wn, ww, wf, wv in zip(got, want.kernels, want.nfeats, want.whs, want.feats, want.valids)
-                      for a, b in zip((lv.kernels, lv.nfeat, lv.wh, lv.feats, lv.valid), (wk, wn, ww, wf, wv))),
+            check(all(lv.kernels is None and tuple(lv.kdims) == wd
+                      and all(np.array_equal(a, b.numpy()) and a.dtype == b.numpy().dtype
+                              for a, b in zip((lv.nfeat, lv.wh, lv.feats, lv.valid), (wn, ww, wf, wv)))
+                      for lv, wd, wn, ww, wf, wv in zip(got, want.kdims, want.nfeats, want.whs, want.feats, want.valids)),
                   f"{what}: rank {r}'s restored shard on the {side} differs from the levels route's")
         check(all(np.array_equal(a, b) for a, b in zip(card[r][i]["outputs"], card[r][0]["outputs"])),
               f"{what}: rank {r}'s outputs differ from the levels route's")
@@ -3449,8 +3456,9 @@ def phase_dense_route(dev, cid, det, det_cpu, frames, depths) -> int:
     the refine kernel's launch count set to 0 just before: ``entry()`` on
     the card, and the bench workload's bank without its lists
     (``DeviceBank.without_features``) through ``detect_frame_core`` at 75
-    and LOW_THRESHOLD, one frame and the batch of 4; the count is read just
-    after and must be 0, and every grouped-conv call is recorded.  Then
+    and LOW_THRESHOLD, one frame and the batch of 4; the count, and the
+    coarse kernel's launches over the same calls, are read just after and
+    must be 0, and every grouped-conv call is recorded.  Then
     ``entry()`` equal to the port's CPU run and to the JAX golden of
     ``tools/torch_port_entry_golden.py``, and each bench point equal to the
     port's CPU run in every slot, to the bit; beside it, whether its live
@@ -3469,6 +3477,7 @@ def phase_dense_route(dev, cid, det, det_cpu, frames, depths) -> int:
     points = [(thr, b) for thr in DENSE_THRESHOLDS for b in DENSE_BATCHES]
     calls: list = []
     LR.similarity_local_sparse_cuda.launches = 0
+    coarse_before = CS.similarity_multiscale_cuda.launches
     with recording_conv_calls(calls):
         fn, args = port_entry(device=dev)
         card_entry = fn(*args)
@@ -3476,6 +3485,8 @@ def phase_dense_route(dev, cid, det, det_cpu, frames, depths) -> int:
         torch.cuda.synchronize()
     launches = LR.similarity_local_sparse_cuda.launches
     check(launches == 0, f"the dense-kernel route launched the refine kernel {launches} times")
+    coarse = CS.similarity_multiscale_cuda.launches - coarse_before
+    check(coarse == 0, f"the bank without feature lists launched the coarse kernel {coarse} times")
     levels = len(BENCH_CFG.t_at_level) - 1
     check(len(calls) == levels * (1 + len(points)), f"{len(calls)} grouped-conv calls recorded")
 
@@ -3531,7 +3542,7 @@ def phase_dense_route(dev, cid, det, det_cpu, frames, depths) -> int:
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          entry={"card_equals_cpu": True, "card_equals_jax_golden": True,
                 "live": int((card_entry[3] >= 0).sum())},
-         bench={"templates": int(bank.kernels[0].shape[0]), "hw": list(frames.shape[1:3]), "top_k": BENCH_CFG.top_k,
+         bench={"templates": int(bank.nfeats[0].shape[0]), "hw": list(frames.shape[1:3]), "top_k": BENCH_CFG.top_k,
                 "card_equals_cpu_bitwise": True, "live_by_point": live,
                 "equals_sparse_route_live_and_keep": sparse_eq, "cpu_reference_s": cpu_s},
          ms_per_frame_at_30=ms, grouped_conv_by_call_at_30=conv, peak_mib_per_frame_at_30=peak,
@@ -3607,7 +3618,7 @@ def main() -> int:
     w_ms, ms, ms_setup_s = multiscale_setup(dev)
     ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
     max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls, ms_call)
-    full_case, lm_case = phase_coarse_matmul(dev, w, mc, mc_cpu)
+    full_case, lm_case = phase_coarse_parity(dev, w, mc, mc_cpu)
     coarse_cases = phase_coarse_score(dev)
     icp_cases = phase_icp(dev)
     with counting_icp_calls("match_golden"):
@@ -3643,8 +3654,6 @@ def main() -> int:
         bench_launches = phase_bench(dev, cid, det, det_cpu)
     with counting_coarse_calls("dense_route"), counting_icp_calls("dense_route"):
         dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
-    check(COARSE_BY_PHASE["dense_route"] == 0, f"the bank without feature lists launched the coarse kernel "
-          f"{COARSE_BY_PHASE['dense_route']} times")
     stages = svc.metrics.snapshot()["stages"]
     synth = {
         "service_stage_ms_per_frame": {k: stages[k]["mean_ms"] for k in ("fused_dispatch", "fused_readback")},
@@ -3720,8 +3729,8 @@ def main() -> int:
         "name": "coarse_score",
         "route": "cuda",
         "source": "sixdpose_tpu_torch/csrc/coarse_score.cu",
-        "replaces": "no TPU kernel: the JAX package's XLA matmuls of similarity_multiscale_matmul "
-                    "(sixdpose_tpu/ops/similarity.py), which the port ran as one addmm per shift bucket",
+        "replaces": "no TPU kernel: the JAX package's shift-bucketed XLA matmuls (sixdpose_tpu/ops/similarity.py), "
+                    "which the port ran as one addmm per shift bucket before this kernel",
         "launches": sum(COARSE_BY_PHASE.values()),
         "launches_by_phase": COARSE_BY_PHASE,
         "exact_vs_plain": True,

@@ -1,11 +1,12 @@
 """The device banks: a class's match-time and refine-time arrays as tensors.
 
 ``bank_levels_from_numpy`` takes the fields of a per-level bank
-(``kernels``, ``nfeat``, ``wh``, ``feats``, ``valid``, as numpy arrays) and
-moves them to a device.  Both packages' ``BankLevel`` carry those fields
-with the same layouts and dtypes, and both read and write the same npz
-(``TemplateBank.save`` / ``load``, the templates' ``infos`` included), so a
-bank built by either feeds the other.  ``refine_bank_from_numpy`` does the
+(``nfeat``, ``wh``, and ``feats`` and ``valid`` or ``kernels``, as numpy
+arrays) and moves them to a device.  Both packages' ``BankLevel`` carry
+those fields with the same layouts and dtypes (the JAX package's carries
+kernels beside its lists, which the port does not read), and both read
+and write the same npz (``TemplateBank.save`` / ``load``, the templates'
+``infos`` included), so a bank built by either feeds the other.  ``refine_bank_from_numpy`` does the
 same for the six arrays of a ``RefineBank``.
 
 For several classes at once, the ``multiclass_*`` functions build the
@@ -37,29 +38,36 @@ import numpy as np
 import torch
 
 from sixdpose_tpu_torch.models.templates import BankLevel
+from sixdpose_tpu_torch.ops.similarity import build_template_kernels
 
 
 @dataclasses.dataclass(frozen=True)
 class DeviceBank:
-    """Per pyramid level (level 0 first) device tensors of one class.
+    """Per pyramid level (level 0 first) device tensors of one class, of one
+    of two kinds, as its numpy ``BankLevel``s are.
 
-    kernels: (N, C, KH, KW) int8 one-hot conv kernels.
     nfeats:  (N,) int32 feature counts.
     whs:     (N, 2) int32 template (width, height).
+    kdims:   (kh, kw) coarse extent of each level, which both kinds carry:
+      (largest height + 1, largest width + 1), the dense kernels' extent.
     feats:   (N, F, 3) int32 padded (x, y, channel) feature lists, or None.
     valids:  (N, F) bool, or None.
+    kernels: (N, C, KH, KW) int8 one-hot conv kernels, or None.
 
-    A bank without feature lists (``feats`` and ``valids`` None), as the
-    JAX package's ``Detector.device_bank`` triple is, takes the dense-kernel
-    route: the coarse level by the dense conv and the refinement by the
-    grouped conv of ``ops.similarity.similarity_local``.
+    A feature-list bank (``feats`` and ``valids``) is scored at the coarse
+    level by ``ops.similarity.similarity_multiscale_auto`` and refined by
+    the local-refine kernel.  A bank without feature lists, as the JAX
+    package's ``Detector.device_bank`` triple is, carries kernels and takes
+    the dense-kernel route: the coarse level by the dense conv and the
+    refinement by the grouped conv of ``ops.similarity.similarity_local``.
     """
 
-    kernels: Tuple[torch.Tensor, ...]
     nfeats: Tuple[torch.Tensor, ...]
     whs: Tuple[torch.Tensor, ...]
+    kdims: Tuple[Tuple[int, int], ...]
     feats: Optional[Tuple[torch.Tensor, ...]] = None
     valids: Optional[Tuple[torch.Tensor, ...]] = None
+    kernels: Optional[Tuple[torch.Tensor, ...]] = None
 
     @classmethod
     def from_kernels(cls, kernels: Sequence, nfeats: Sequence, whs: Sequence, device) -> "DeviceBank":
@@ -67,41 +75,69 @@ class DeviceBank:
         (kernels, nfeats, whs) numpy arrays of the JAX package's
         ``Detector.device_bank``."""
         return cls(
-            kernels=tuple(_to(k, np.int8, device) for k in kernels),
             nfeats=tuple(_to(n, np.int32, device) for n in nfeats),
             whs=tuple(_to(w, np.int32, device) for w in whs),
+            kdims=tuple(tuple(int(d) for d in np.shape(k)[-2:]) for k in kernels),
+            kernels=tuple(_to(k, np.int8, device) for k in kernels),
         )
 
     def without_features(self) -> "DeviceBank":
-        """The same bank with its feature lists dropped: the dense-kernel
-        route's bank."""
-        return dataclasses.replace(self, feats=None, valids=None)
+        """The dense-kernel route's bank: ``convert.without_features`` of
+        this bank's levels, on its device."""
+        if self.feats is None:
+            return self
+        host = lambda ts: [t.cpu().numpy() for t in ts]  # noqa: E731
+        levels = [BankLevel(nfeat=n, wh=w, kdims=d, feats=f, valid=v)
+                  for n, w, d, f, v in zip(host(self.nfeats), host(self.whs), self.kdims, host(self.feats),
+                                           host(self.valids))]
+        return bank_levels_from_numpy(without_features(levels), self.nfeats[0].device)
 
 
 def _to(a, dtype: np.dtype, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(np.asarray(a), dtype=dtype)).to(device)
 
 
+def level_kdims(b) -> Tuple[int, int]:
+    """The coarse extent (kh, kw) of a numpy level of either package: the
+    port's ``BankLevel`` carries it; the JAX package's level has none, and
+    its kernels' extent is its extent."""
+    return tuple(b.kdims) if isinstance(b, BankLevel) else tuple(int(d) for d in b.kernels.shape[-2:])
+
+
+def _channels(feats: Sequence[np.ndarray], valids: Sequence[np.ndarray]) -> int:
+    """Kernel channels of a bank's feature lists: 8 per modality (channel =
+    modality * 8 + label).  Every extracted template has features of each
+    of its detector's modalities at every level, so the largest channel
+    names the last modality."""
+    top = max((int(f[..., 2][v].max()) for f, v in zip(feats, valids) if v.any()), default=0)
+    return 8 * (top // 8 + 1)
+
+
 def bank_levels_from_numpy(levels: Sequence, device) -> DeviceBank:
-    """Device bank from per-level objects with numpy fields ``kernels``,
-    ``nfeat``, ``wh``, ``feats`` and ``valid`` (a ``BankLevel`` of either
-    package).  Levels whose ``feats`` are None give a bank without feature
-    lists."""
-    bank = DeviceBank.from_kernels([b.kernels for b in levels], [b.nfeat for b in levels], [b.wh for b in levels],
-                                   device)
-    if levels[0].feats is None:
-        return bank
-    return dataclasses.replace(
-        bank,
-        feats=tuple(_to(b.feats, np.int32, device) for b in levels),
-        valids=tuple(_to(b.valid, np.bool_, device) for b in levels),
+    """Device bank from per-level numpy banks (a ``BankLevel`` of either
+    package), of the levels' kind: a level with feature lists is a
+    feature-list level, even where the JAX package's level carries kernels
+    too; levels whose ``feats`` are None give a bank of kernels."""
+    lists = levels[0].feats is not None
+    return DeviceBank(
+        nfeats=tuple(_to(b.nfeat, np.int32, device) for b in levels),
+        whs=tuple(_to(b.wh, np.int32, device) for b in levels),
+        kdims=tuple(level_kdims(b) for b in levels),
+        feats=tuple(_to(b.feats, np.int32, device) for b in levels) if lists else None,
+        valids=tuple(_to(b.valid, np.bool_, device) for b in levels) if lists else None,
+        kernels=None if lists else tuple(_to(b.kernels, np.int8, device) for b in levels),
     )
 
 
 def without_features(levels: Sequence) -> list:
-    """A class's per-level numpy bank with its feature lists dropped: the
-    dense-kernel route's bank."""
-    return [BankLevel(kernels=b.kernels, nfeat=b.nfeat, wh=b.wh, feats=None, valid=None) for b in levels]
+    """A class's per-level numpy bank (either package's levels) as the
+    dense-kernel route's bank: each level's kernels built from its feature
+    lists at its extent (``build_template_kernels``), the lists dropped.
+    This and ``DeviceBank.without_features`` are where a feature-list bank
+    becomes a dense one."""
+    c = _channels([b.feats for b in levels], [b.valid for b in levels])
+    return [BankLevel(nfeat=b.nfeat, wh=b.wh, kdims=level_kdims(b),
+                      kernels=build_template_kernels(b.feats, b.valid, *level_kdims(b), c)) for b in levels]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -149,8 +185,9 @@ class MultiClassBank:
     """Every class's bank as one superbank on a device.
 
     bank:    the per-class ``DeviceBank`` arrays concatenated class-major
-      (global template ids), kernels zero-padded to the classes' largest
-      (KH, KW) and feature lists to their largest F, per level.
+      (global template ids), of the classes' kind: feature lists padded to
+      their largest F, or kernels zero-padded to their largest (KH, KW);
+      the extent is the classes' largest, per level.
     pad_map: (C, Nmax) int32 global id of each class's local template, -1
       past the class's count.
     nmax:    the largest class's template count.
@@ -163,29 +200,25 @@ class MultiClassBank:
 
 def multiclass_bank_from_numpy(per_class: Sequence[Sequence], device) -> MultiClassBank:
     """The superbank of the classes' per-level banks (``BankLevel``s of
-    either package, one list per class in class order), on ``device``;
-    without feature lists when the classes' levels have none."""
-    counts = [levels[0].kernels.shape[0] for levels in per_class]
+    either package, one list per class in class order), on ``device``, of
+    the levels' kind (``bank_levels_from_numpy``)."""
+    counts = [levels[0].nfeat.shape[0] for levels in per_class]
     merged = []
     for l in range(len(per_class[0])):
         lv = [levels[l] for levels in per_class]
-        khm = max(b.kernels.shape[2] for b in lv)
-        kwm = max(b.kernels.shape[3] for b in lv)
-        feats = valid = None
+        khm, kwm = (max(level_kdims(b)[i] for b in lv) for i in (0, 1))
+        cat = dict(nfeat=np.concatenate([b.nfeat for b in lv]), wh=np.concatenate([b.wh for b in lv]),
+                   kdims=(khm, kwm))
         if lv[0].feats is not None:
             fm = max(b.feats.shape[1] for b in lv)
-            feats = np.concatenate([np.pad(b.feats, ((0, 0), (0, fm - b.feats.shape[1]), (0, 0))) for b in lv])
-            valid = np.concatenate([np.pad(b.valid, ((0, 0), (0, fm - b.valid.shape[1]))) for b in lv])
-        merged.append(BankLevel(
-            kernels=np.concatenate([
+            cat["feats"] = np.concatenate([np.pad(b.feats, ((0, 0), (0, fm - b.feats.shape[1]), (0, 0))) for b in lv])
+            cat["valid"] = np.concatenate([np.pad(b.valid, ((0, 0), (0, fm - b.valid.shape[1]))) for b in lv])
+        else:
+            cat["kernels"] = np.concatenate([
                 np.pad(b.kernels, ((0, 0), (0, 0), (0, khm - b.kernels.shape[2]), (0, kwm - b.kernels.shape[3])))
                 for b in lv
-            ]),
-            nfeat=np.concatenate([b.nfeat for b in lv]),
-            wh=np.concatenate([b.wh for b in lv]),
-            feats=feats,
-            valid=valid,
-        ))
+            ])
+        merged.append(BankLevel(**cat))
     pad_map = np.full((len(counts), max(counts)), -1, np.int32)
     start = 0
     for ci, cnt in enumerate(counts):

@@ -4,7 +4,7 @@
 //
 // Replaces no TPU kernel.  The JAX package scores the coarse level as XLA
 // matmuls over a dense float32 weight tensor W[bucket, row, channel]
-// (similarity_multiscale_matmul, sixdpose_tpu/ops/similarity.py), the right
+// (its shift-bucketed matmul route, sixdpose_tpu/ops/similarity.py), the right
 // design for a TPU, whose matrix unit is fast and whose gathers are slow.
 // The port ran the same design as one cuBLAS addmm per shift bucket and row
 // chunk; on the H100 that was 95-99.5% of every benchmark cell's device
@@ -12,8 +12,8 @@
 // non-zero (62 of 230,400 entries a row at the T-LESS coarse shape).  This
 // kernel sums just those entries.
 //
-// Contract (that of similarity_multiscale_matmul, ops/similarity.py; the
-// plain version is similarity_multiscale_sparse): feature f = (x, y, c) of
+// Contract (that of its plain version, similarity_multiscale_sparse in
+// ops/similarity.py): feature f = (x, y, c) of
 // template n at scale s sits at (xs, ys) = (rint(x * s), rint(y * s)) (one
 // float32 multiply, rounded half to even) and counts only if valid, inside
 // the (kh, kw) extent and s > 0.  It reads the space-to-depth maps

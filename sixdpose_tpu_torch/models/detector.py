@@ -5,8 +5,8 @@ linemodLevelup.cpp:1663-2010):
 
 - quantize each modality per pyramid level, spread, build response maps;
 - score every template of a class at every stride-T placement of the
-  coarsest level with one dense correlation, or for large banks with the
-  feature-list scorer (``coarse_scores``);
+  coarsest level (``coarse_scores``): by the feature-list scorer for a
+  bank with feature lists, by one dense correlation for a bank of kernels;
 - keep a fixed top-K above the threshold (cpp:1836-1852) and re-score each
   candidate over a 16x16 placement window on the way down the pyramid
   (cpp:1854-1938) with the local-refine kernel;
@@ -44,12 +44,6 @@ from sixdpose_tpu_torch.ops.spread import compute_response_maps, spread_orientat
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes, topk_candidates
 from sixdpose_tpu_torch.utils.timing import frame_entry, span, stage
 
-# Dense-conv size (multiply-adds) above which the coarse level is scored over
-# the feature lists (similarity_multiscale_auto), as in the JAX package (a
-# line set on the TPU for its shift-bucketed matmuls).
-_MATMUL_MACS = 2e10
-
-
 @dataclasses.dataclass
 class Match:
     """A detection (reference Match struct, linemodLevelup.h:225-253)."""
@@ -66,33 +60,27 @@ def _offset(t: int) -> int:
     return t // 2 + (t % 2 - 1)
 
 
-def coarse_macs(maps_shape, kernels_shape, t: int) -> int:
-    """Multiply-adds of the dense coarse conv: templates x stride-t
-    placements x channels x kernel cells."""
-    n_k, c_k, kh, kw = kernels_shape
-    return n_k * -(-maps_shape[-2] // t) * -(-maps_shape[-1] // t) * c_k * kh * kw
+def coarse_scores(response_pyramid, bank: DeviceBank, t_at_level: Tuple[int, ...]):
+    """Scoring at the coarsest level (cpp:1820-1852), by the bank's kind: a
+    bank with feature lists by ``similarity_multiscale_auto`` at scale 1
+    over its extent (the gather-sum kernel on the card, its plain version on
+    the CPU), a bank of kernels by the dense conv (``similarity_dense``).
+    Both give the same integers.
 
-
-def coarse_scores(response_pyramid, kernels, nfeats, t_at_level: Tuple[int, ...], feats=None, valids=None):
-    """Scoring at the coarsest level (cpp:1820-1852), adapted to the bank's
-    size as in the JAX package: the dense conv (``similarity_dense``) up to
-    ``_MATMUL_MACS`` multiply-adds, and above it, when the feature lists are
-    given, ``similarity_multiscale_auto`` at scale 1 (the same integers: the
-    gather-sum kernel on the card, the shift-bucketed matmuls on the CPU).
-
-    Returns ([B,] N, hb, wb) float32 normalized scores; -1 marks templates
-    without a feature inside the kernel (matmul branch).
+    Returns ([B,] N, hb, wb) float32 normalized scores; with feature lists,
+    -1 marks templates without a feature inside the extent.
     """
     coarse = len(t_at_level) - 1
     t_c = t_at_level[coarse]
-    maps, kern = response_pyramid[coarse], kernels[coarse]
-    if feats is not None and coarse_macs(maps.shape, kern.shape, t_c) > _MATMUL_MACS:
+    maps = response_pyramid[coarse]
+    if bank.feats is not None:
         one = torch.ones((1,), dtype=torch.float32, device=maps.device)
-        raw, nf = similarity_multiscale_auto(maps, feats[coarse], valids[coarse], one, t_c, *kern.shape[-2:])
+        raw, nf = similarity_multiscale_auto(maps, bank.feats[coarse], bank.valids[coarse], one, t_c,
+                                             *bank.kdims[coarse])
         scores = score_normalize(raw, nf.clamp(min=1).expand(raw.shape[:-2]))
         return torch.where(nf[:, None, None] > 0, scores, -1.0)
-    raw = similarity_dense(maps, kern, t_c)
-    return score_normalize(raw, nfeats[coarse].expand(raw.shape[:-2]))
+    raw = similarity_dense(maps, bank.kernels[coarse], t_c)
+    return score_normalize(raw, bank.nfeats[coarse].expand(raw.shape[:-2]))
 
 
 @stage("refine")
@@ -217,14 +205,15 @@ def detect_frame_core(
     threshold: float,
     apply_nms: bool = True,
 ):
-    """One detection step: quantize -> spread -> response -> dense
+    """One detection step: quantize -> spread -> response -> coarse
     similarity -> top-K -> pyramid refine -> sort -> NMS.
 
     Args:
       rgb: (H, W, 3) uint8, or (B, H, W, 3) for a batch of frames.
       depth: (H, W) or (B, H, W) int32 depth in mm.
-      bank: the class's device bank, on the images' device; without
-        feature lists it takes the dense-kernel route (``pyramid_refine``).
+      bank: the class's device bank, on the images' device; a bank of
+        kernels takes the dense-kernel route (``coarse_scores``,
+        ``pyramid_refine``).
       cfg: the detector configuration.
       threshold: similarity threshold in [0, 100].
       apply_nms: box NMS (else keep = score >= 0).
@@ -239,7 +228,7 @@ def detect_frame_core(
     pyramid = _build_response_pyramid(rgb, depth, cfg)
     t_c = cfg.t_at_level[-1]
     with span("coarse"):
-        scores = coarse_scores(pyramid, bank.kernels, bank.nfeats, tuple(cfg.t_at_level), bank.feats, bank.valids)
+        scores = coarse_scores(pyramid, bank, tuple(cfg.t_at_level))
     with span("topk"):
         tid, yi, xi, score = topk_candidates(scores, threshold, cfg.top_k)
         x = xi * t_c + _offset(t_c)

@@ -50,8 +50,9 @@ def match_multiclass_core(
     Args:
       response_pyramid: per level (C_maps, H_l, W_l) uint8 response maps of
         one frame.
-      bank: the superbank (global template ids), with or without feature
-        lists (``pyramid_refine``'s two routes); pad_map: (C, Nmax) int32
+      bank: the superbank (global template ids), with feature lists or
+        with kernels (``coarse_scores``' and ``pyramid_refine``'s two
+        routes); pad_map: (C, Nmax) int32
         global id of each class's local template, -1 = pad.
       apply_nms: per-class box NMS (else keep = score >= 0).  Matches of
         different classes never suppress each other.
@@ -62,7 +63,7 @@ def match_multiclass_core(
     """
     t_c = t_at_level[-1]
     with span("coarse"):
-        scores = coarse_scores(response_pyramid, bank.kernels, bank.nfeats, t_at_level, bank.feats, bank.valids)
+        scores = coarse_scores(response_pyramid, bank, t_at_level)
         # Each class's templates at its own row of a (C, Nmax) grid; pad rows
         # score -1 and never pass the threshold.
         safe = pad_map.clamp(min=0).long()

@@ -10,8 +10,8 @@ the frame,
     response pyramid -> depth proposals (``ops/scale_proposal.py``)
     -> coarse scoring of every (scale, template) pair at once
        (``coarse_sweep``: the feature lists scaled per frame, summed by the
-       coarse-scorer kernel on the card and by shift-bucketed matmuls on
-       the CPU) -> top-K over (scale, template, y, x)
+       coarse-scorer kernel on the card and by its plain version on the
+       CPU) -> top-K over (scale, template, y, x)
     -> local refinement of every candidate with its own scale, one
        local-refine kernel launch per level (``pyramid_refine``)
     -> sort and box NMS

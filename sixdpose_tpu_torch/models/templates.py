@@ -23,7 +23,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -32,7 +32,6 @@ from scipy import ndimage
 from sixdpose_tpu_torch.config import DetectorConfig
 from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.ops import quantize as Q
-from sixdpose_tpu_torch.ops.similarity import build_template_kernels
 
 
 @dataclasses.dataclass
@@ -306,25 +305,31 @@ def extract_template(
 
 @dataclasses.dataclass
 class BankLevel:
-    """Dense match-time arrays for one (class, pyramid level), numpy.
+    """Match-time arrays for one (class, pyramid level), numpy, of one of
+    two kinds fixed when the level is made.  A feature-list level
+    (``TemplateBank.finalized``) carries ``feats`` and ``valid`` and no
+    kernels; a dense level (``convert.without_features``) carries
+    ``kernels`` and no lists.
 
-    kernels: (N, C, KH, KW) int8 one-hot conv kernels.
     nfeat:   (N,) int32 total feature count (for score normalization).
     wh:      (N, 2) int32 template (width, height) at this level.
-    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists, or None
-      for the dense-kernel route (``convert.without_features``).
+    kdims:   (kh, kw) coarse extent, (largest height + 1, largest width +
+      1) of the whole class: the dense kernels' extent.
+    feats:   (N, F, 3) int32 padded (x, y, channel) feature lists, or None.
     valid:   (N, F) bool, or None with ``feats``.
+    kernels: (N, C, KH, KW) int8 one-hot conv kernels, or None.
     """
 
-    kernels: np.ndarray
     nfeat: np.ndarray
     wh: np.ndarray
-    feats: Optional[np.ndarray]
-    valid: Optional[np.ndarray]
+    kdims: Tuple[int, int]
+    feats: Optional[np.ndarray] = None
+    valid: Optional[np.ndarray] = None
+    kernels: Optional[np.ndarray] = None
 
 
 class TemplateBank:
-    """Per-class template store with dense match-time views, saved as npz
+    """Per-class template store with padded match-time arrays, saved as npz
     (the reference's templates_%s.yml.gz, cpp:2013-2146)."""
 
     def __init__(self, cfg: DetectorConfig):
@@ -372,7 +377,8 @@ class TemplateBank:
     # -- match-time ---------------------------------------------------------
 
     def finalized(self, class_id: str) -> List[BankLevel]:
-        """Dense per-level arrays for matching (built once, cached)."""
+        """Per-level feature-list arrays for matching (built once, cached);
+        they hold no kernels."""
         if class_id not in self._finalized:
             self._finalized[class_id] = self._build(class_id)
         return self._finalized[class_id]
@@ -380,13 +386,10 @@ class TemplateBank:
     def _build(self, class_id: str) -> List[BankLevel]:
         tmpls = self.templates[class_id]
         n = len(tmpls)
-        num_channels = 8 * self.cfg.num_modalities
         out = []
         for l in range(self.cfg.pyramid_levels):
-            kw = max(t[l].width for t in tmpls) + 1
-            kh = max(t[l].height for t in tmpls) + 1
             fmax = max(len(t[l].features) for t in tmpls)
-            feats = np.zeros((n, fmax, 3), np.int64)
+            feats = np.zeros((n, fmax, 3), np.int32)
             valid = np.zeros((n, fmax), bool)
             nfeat = np.zeros((n,), np.int32)
             wh = np.zeros((n, 2), np.int32)
@@ -396,10 +399,8 @@ class TemplateBank:
                 valid[i, : len(f)] = True
                 nfeat[i] = len(f)
                 wh[i] = (t[l].width, t[l].height)
-            kern = build_template_kernels(feats, valid, kh, kw, num_channels)
-            out.append(
-                BankLevel(kernels=kern, nfeat=nfeat, wh=wh, feats=feats.astype(np.int32), valid=valid)
-            )
+            kdims = (int(wh[:, 1].max()) + 1, int(wh[:, 0].max()) + 1)
+            out.append(BankLevel(nfeat=nfeat, wh=wh, kdims=kdims, feats=feats, valid=valid))
         return out
 
     # -- persistence --------------------------------------------------------

@@ -2,13 +2,12 @@
 
 The kernel scores every (scale, template) row of a bank at every stride-t
 placement of the coarsest level by a feature-sparse gather-sum over the
-space-to-depth maps, with the contract of
-``ops.similarity.similarity_multiscale_matmul``; the source note in the
-``.cu`` file says why it was added, what bounds it and how it is laid out.
-Its plain PyTorch version is ``ops.similarity.similarity_multiscale_sparse``.
-For tensors on the CPU the wrapper runs the shift-bucketed matmuls, the
-route the CPU tests hold against the JAX package; for CUDA tensors it
-launches the kernel or raises; it never falls back.
+space-to-depth maps; the source note in the ``.cu`` file says why it was
+added, what bounds it and how it is laid out.  Its plain PyTorch version,
+whose contract it has, is ``ops.similarity.similarity_multiscale_sparse``.
+For tensors on the CPU the wrapper runs the plain version, as the
+local-refine and ICP wrappers run theirs; for CUDA tensors it launches the
+kernel or raises; it never falls back.
 """
 
 from __future__ import annotations
@@ -18,7 +17,7 @@ import ctypes
 import torch
 
 from sixdpose_tpu_torch.ops import _build
-from sixdpose_tpu_torch.ops.similarity import _s2d_maps, similarity_multiscale_matmul
+from sixdpose_tpu_torch.ops.similarity import _s2d_maps, similarity_multiscale_sparse
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _MAX_TILES = 65535  # placement tiles of 128 run on grid.y, frames on grid.z
@@ -53,7 +52,7 @@ def similarity_multiscale_cuda(
     kw: int,
 ):
     """Coarse scores of every template at every scale; the contract of
-    ``ops.similarity.similarity_multiscale_matmul``.
+    ``ops.similarity.similarity_multiscale_sparse``.
 
     Args:
       response_maps: (C, H, W) or (B, C, H, W) uint8 (one launch for the
@@ -63,10 +62,10 @@ def similarity_multiscale_cuda(
       t: stride of this level; kh, kw: the kernel extent.
 
     Returns (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,) int32).  A CPU
-    tensor runs the shift-bucketed matmuls; a CUDA tensor the kernel.
+    tensor runs the plain version; a CUDA tensor the kernel.
     """
     if not response_maps.is_cuda:
-        return similarity_multiscale_matmul(response_maps, feats, valid, scales, t, kh, kw)
+        return similarity_multiscale_sparse(response_maps, feats, valid, scales, t, kh, kw)
     single = response_maps.dim() == 3
     if response_maps.dim() not in (3, 4):
         raise ValueError(f"maps must be (C, H, W) or (B, C, H, W), got {tuple(response_maps.shape)}")

@@ -6,14 +6,13 @@ template feature at every stride-T placement (linemodLevelup.cpp:1215-1354);
 here that sum is
 
 - ``similarity_dense``: one float32 convolution of the space-to-depth
-  response maps with one-hot template kernels, for the coarse level;
-- ``similarity_multiscale_auto``: the same coarse sum, for banks too
-  large for the conv, over the feature lists (optionally at several feature
-  scales: the multi-scale matchers).  On a CUDA tensor it runs the
-  hand-written gather-sum kernel of ``ops/coarse_score.py``, whose plain
-  version is ``similarity_multiscale_sparse``; on a CPU tensor
-  ``similarity_multiscale_matmul``, one matmul per shift bucket, as the JAX
-  package computes it;
+  response maps with one-hot template kernels, for the coarse level of a
+  bank of kernels (the dense-kernel route);
+- ``similarity_multiscale_auto``: the same coarse sum over the feature
+  lists of a bank that has them (optionally at several feature scales: the
+  multi-scale matchers).  On a CUDA tensor it runs the hand-written
+  gather-sum kernel of ``ops/coarse_score.py``; on a CPU tensor its plain
+  version, ``similarity_multiscale_sparse``;
 - ``similarity_dense_pre_s2d`` and ``build_kernels_scaled``: the same
   multi-scale sum as a conv of scaled one-hot kernels (references, off the
   main path);
@@ -184,60 +183,9 @@ def similarity_dense_pre_s2d(response_maps: torch.Tensor, kernels_s2d: torch.Ten
     return torch.round(F.conv2d(lhs, kernels_s2d.to(torch.float32)))[0]
 
 
-# Bytes of one row chunk of the float32 shift-bucketed weights W (and of the
-# plain gather's indices and gathered bytes).  The CPU route builds and
-# contracts W a chunk at a time, so its peak stays at 1 GiB whatever the
-# sweep; the card runs the coarse-scorer kernel, which builds no W.
+# Bytes of one row chunk of the plain coarse scorer's gather indices and
+# gathered bytes: its peak stays near 1 GiB whatever the sweep.
 _W_CHUNK_BYTES = 1 << 30
-
-
-def _bucket_slices(maps_s2d: torch.Tensor, khb: int, kwb: int) -> torch.Tensor:
-    """The s2d maps (B, ct2, hb, wb) under each shift bucket b = dy * kwb + dx:
-    (khb * kwb, ct2, B * ho * wo) float32, bucket b holding the window at
-    (dy, dx) of every frame (column = frame * ho * wo + y * wo + x)."""
-    b_n, ct2, hb, wb = maps_s2d.shape
-    ho, wo = hb - khb + 1, wb - kwb + 1
-    m = maps_s2d.to(torch.float32).transpose(0, 1)  # (ct2, B, hb, wb)
-    return torch.stack(
-        [m[:, :, dy : dy + ho, dx : dx + wo].reshape(ct2, b_n * ho * wo) for dy in range(khb) for dx in range(kwb)]
-    )
-
-
-def _bucket_weights(bucket: torch.Tensor, cprime: torch.Tensor, ok: torch.Tensor, bh: int, ct2: int) -> torch.Tensor:
-    """The shift-bucketed weights of a row chunk: (rows, F) bucket ids,
-    s2d channels and masks -> W (bh, rows, ct2) float32 with W[b, r, c] the
-    number of valid features f of row r at (bucket, cprime) = (b, c).
-
-    One scatter-add of the masks (masked features add 0 at a clamped
-    index).  The JAX package builds W as a batched one-hot matmul because
-    scatters are serial on the TPU; on the card a scatter-add is one
-    parallel pass, and its float sums of 0/1 are exact in any order."""
-    rows = bucket.shape[0]
-    row = torch.arange(rows, device=bucket.device)[:, None]
-    idx = (bucket.clamp(0, bh - 1).to(torch.int64) * rows + row) * ct2 + cprime.clamp(0, ct2 - 1).to(torch.int64)
-    w = torch.zeros(bh * rows * ct2, dtype=torch.float32, device=bucket.device)
-    w.scatter_add_(0, idx.reshape(-1), ok.to(torch.float32).reshape(-1))
-    return w.reshape(bh, rows, ct2)
-
-
-def _matmul_shift_sum_s2d(slices: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """sum_b W[b] @ slices[b]: weights (bh, SN, ct2) and bucket slices (bh,
-    ct2, P) -> (SN, P) float32, one matmul per shift bucket."""
-    acc = torch.matmul(w[0].to(torch.float32), slices[0])
-    for b in range(1, w.shape[0]):
-        acc = torch.addmm(acc, w[b].to(torch.float32), slices[b])
-    return acc
-
-
-def matmul_shift_sum(response_maps: torch.Tensor, w: torch.Tensor, t: int, khb: int, kwb: int) -> torch.Tensor:
-    """raw[sn, y, x] = sum_b W[b, sn] @ maps_s2d[:, y + b // kwb, x + b % kwb]:
-    the shift-bucketed contraction of (C, H, W) uint8 maps with weights
-    (khb * kwb, SN, C * t * t) (any integer or float dtype) -> (SN, Ho, Wo)
-    float32."""
-    maps = _s2d_maps(response_maps, t)[None]
-    hb, wb = maps.shape[-2:]
-    raw = _matmul_shift_sum_s2d(_bucket_slices(maps, khb, kwb), w)
-    return raw.reshape(w.shape[1], hb - khb + 1, wb - kwb + 1)
 
 
 def bucket_table(feats: torch.Tensor, valid: torch.Tensor, scales: torch.Tensor, t: int, kh: int, kw: int):
@@ -261,68 +209,6 @@ def bucket_table(feats: torch.Tensor, valid: torch.Tensor, scales: torch.Tensor,
     return (a.reshape(scales.shape[0] * n, f) for a in (bucket, cprime, ok))
 
 
-def similarity_multiscale_matmul(
-    response_maps: torch.Tensor,
-    feats: torch.Tensor,
-    valid: torch.Tensor,
-    scales: torch.Tensor,
-    t: int,
-    kh: int,
-    kw: int,
-):
-    """Coarse scoring of every template at every scale as shift-bucketed
-    matmuls (the JAX package's ``similarity_multiscale_matmul``): the
-    route of CPU tensors in ``similarity_multiscale_auto``.
-
-    Feature f of template n at scale s sits at (round(x * s), round(y * s))
-    and counts only if valid, inside the (kh, kw) extent and s > 0; in the
-    space-to-depth layout it falls in one shift bucket b at one channel
-    (``bucket_table``), so with W[b, sn, c'] the number of row sn's
-    features there,
-
-        raw[sn] = sum_b W[b, sn] @ maps_s2d[:, dy_b : dy_b + Ho, dx_b : dx_b + Wo]
-
-    W is built a row chunk at a time by one scatter-add
-    (``_bucket_weights``, chunks of ``_W_CHUNK_BYTES``) and contracted by
-    one matmul per bucket.
-
-    Exact in float32: the operands are integers (responses 0..4, counts of
-    coinciding features), which float32 and TF32 hold exactly, every
-    product and partial sum is an integer no larger than 4 * F, far below
-    2^24, so any summation order cuBLAS or the CPU picks gives the exact
-    integer.  (bfloat16 or float16 outputs would not: they hold integers
-    exactly only up to 256 or 2048.)
-
-    Args:
-      response_maps: (C, H, W) or (B, C, H, W) uint8.
-      feats: (N, F, 3) int32 (x, y, channel); valid: (N, F) bool.
-      scales: (S,) float32 feature-coordinate scales, 0 = no proposal.
-      t: stride of this level; kh, kw: the kernel extent.
-
-    Returns (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,) int32), row
-    s * N + n for template n at scale s; Ho = ceil(H / t) - ceil(kh / t) + 1.
-    """
-    single = response_maps.dim() == 3
-    maps = _s2d_maps(response_maps[None] if single else response_maps, t)
-    khb, kwb = -(-kh // t), -(-kw // t)
-    bh, ct2 = khb * kwb, maps.shape[1]
-    bucket, cprime, ok = bucket_table(feats, valid, scales, t, kh, kw)
-    sn = bucket.shape[0]
-    nfeat = ok.sum(-1).to(torch.int32)
-
-    hb, wb = maps.shape[-2:]
-    ho, wo = hb - khb + 1, wb - kwb + 1
-    slices = _bucket_slices(maps, khb, kwb)
-    chunk = max(1, min(sn, _W_CHUNK_BYTES // (bh * ct2 * 4)))
-    parts = [
-        _matmul_shift_sum_s2d(slices, _bucket_weights(bucket[i : i + chunk], cprime[i : i + chunk], ok[i : i + chunk], bh, ct2))
-        for i in range(0, sn, chunk)
-    ]
-    raw = torch.cat(parts) if len(parts) > 1 else parts[0]
-    raw = raw.reshape(sn, maps.shape[0], ho, wo).transpose(0, 1).contiguous()
-    return (raw[0] if single else raw), nfeat
-
-
 def similarity_multiscale_sparse(
     response_maps: torch.Tensor,
     feats: torch.Tensor,
@@ -332,24 +218,33 @@ def similarity_multiscale_sparse(
     kh: int,
     kw: int,
 ):
-    """Coarse multi-scale scoring as a feature-sparse gather-sum: the plain
-    version of the coarse-scorer kernel (``ops/coarse_score.py``), with
-    ``similarity_multiscale_matmul``'s contract and integers.
+    """Coarse scoring of every template at every scale as a feature-sparse
+    gather-sum: the plain version of the coarse-scorer kernel
+    (``ops/coarse_score.py``), with the integers of the JAX package's
+    shift-bucketed matmul route.
 
-    Every counted (scale, template, feature) reads the space-to-depth maps
-    (B, ct2, hb, wb) at one packed offset c' * hb * wb + (ys // t) * wb +
-    xs // t (``bucket_table``'s bucket and channel, c' clamped into the maps
-    as the matmul route's weight build clamps it), plus y * wb + x at
-    placement (y, x); the rows sum over features in int32.  Work scales
-    with the feature count, like the reference's linearized memories
-    (cpp:1215-1243).  Rows are gathered a chunk at a time, so the index and
-    gathered bytes stay within ``_W_CHUNK_BYTES``.  (The JAX package gathers
-    rows of an im2col of the maps, with four byte lanes packed into 32-bit
-    words: TPU gather workarounds the port does not need.)
+    Feature f of template n at scale s sits at (round(x * s), round(y * s))
+    (one float32 multiply, rounded half to even) and counts only if valid,
+    inside the (kh, kw) extent and s > 0 (``bucket_table``).  Each counted
+    (scale, template, feature) reads the space-to-depth maps (B, ct2, hb,
+    wb) at one packed offset c' * hb * wb + (ys // t) * wb + xs // t (its
+    shift bucket and s2d channel, c' clamped into the maps), plus y * wb + x
+    at placement (y, x); the rows sum over features in int32, exactly.
+    Work scales with the feature count, like the reference's linearized
+    memories (cpp:1215-1243).  Rows are gathered a chunk at a time, so the
+    index and gathered bytes stay within ``_W_CHUNK_BYTES``.  (The JAX
+    package contracts shift-bucketed weights with one matmul per bucket, or
+    gathers rows of an im2col with four byte lanes packed into 32-bit
+    words: TPU workarounds the port does not need.)
 
-    Args and returns as ``similarity_multiscale_matmul``: maps (C, H, W) or
-    (B, C, H, W) uint8 -> (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,)
-    int32).
+    Args:
+      response_maps: (C, H, W) or (B, C, H, W) uint8.
+      feats: (N, F, 3) int32 (x, y, channel); valid: (N, F) bool.
+      scales: (S,) float32 feature-coordinate scales, 0 = no proposal.
+      t: stride of this level; kh, kw: the kernel extent.
+
+    Returns (raw ([B,] S * N, Ho, Wo) float32, nfeat (S * N,) int32), row
+    s * N + n for template n at scale s; Ho = ceil(H / t) - ceil(kh / t) + 1.
     """
     single = response_maps.dim() == 3
     maps = _s2d_maps(response_maps[None] if single else response_maps, t)
@@ -374,9 +269,9 @@ def similarity_multiscale_sparse(
 
 def similarity_multiscale_auto(response_maps, feats, valid, scales, t: int, kh: int, kw: int):
     """Dispatch of the coarse scorer: the hand-written kernel for CUDA
-    tensors, the shift-bucketed matmuls for CPU tensors (the kernel's
-    wrapper makes that choice by device, and only by device).  Same
-    contract as ``similarity_multiscale_matmul``."""
+    tensors, the plain version for CPU tensors (the kernel's wrapper makes
+    that choice by device, and only by device).  Same contract as
+    ``similarity_multiscale_sparse``."""
     # Imported here: ops/coarse_score.py imports this module.
     from sixdpose_tpu_torch.ops.coarse_score import similarity_multiscale_cuda
 

@@ -64,7 +64,7 @@ def sharded_detect_refine(
     Returns this rank's data shard (tid, x, y, score, keep), each (B_l, K),
     T (B_l, K, 4, 4) and fitness (B_l, K).
     """
-    rgb, dep = data_shard(mesh, rgb_batch, depth_batch, bank.kernels[0].device)
+    rgb, dep = data_shard(mesh, rgb_batch, depth_batch, bank.nfeats[0].device)
     tid, x, y, score, keep = detect_shard(mesh, rgb, dep, bank, cfg, threshold)
     k = init_T.shape[0]
     pts = model_pts[None].expand(k, *model_pts.shape)

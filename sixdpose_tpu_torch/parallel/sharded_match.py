@@ -38,6 +38,7 @@ from sixdpose_tpu_torch.convert import (
     DeviceBank,
     MultiScaleBank,
     bank_levels_from_numpy,
+    level_kdims,
     multiscale_arrays,
     multiscale_bank_from_arrays,
 )
@@ -45,7 +46,6 @@ from sixdpose_tpu_torch.models.detector import _image, detect_frame_core
 from sixdpose_tpu_torch.models.multiscale import multiscale_multiclass_core
 from sixdpose_tpu_torch.models.templates import BankLevel
 from sixdpose_tpu_torch.ops.scale_proposal import bin_centers
-from sixdpose_tpu_torch.ops.similarity import build_template_kernels
 from sixdpose_tpu_torch.ops.topk_nms import nms_boxes
 
 
@@ -71,17 +71,19 @@ def shard_bank(levels: Sequence, shards: int, index: int, device) -> DeviceBank:
     ``BankLevel``s of either package) on ``device``: templates
     ``[index * n_local, (index + 1) * n_local)`` of the bank padded to a
     multiple of ``shards``, padded templates all zero with ``nfeat`` 1.
-    Levels without feature lists (``convert.without_features``) give a
-    shard without them: only the kernels, counts and extents split, as the
-    JAX package's ``sharded_detect`` shards a bank without lists."""
+    The arrays the levels carry split (the feature lists, or the kernels of
+    ``convert.without_features`` levels, as the JAX package's
+    ``sharded_detect`` shards a bank without lists); the extent stays the
+    whole class's, so every shard scores the same placements."""
     out = []
     for b in levels:
-        fields = (b.kernels, b.wh) if b.feats is None else (b.kernels, b.wh, b.feats, b.valid)
-        kern, wh, *lists = pad_templates(tuple(np.asarray(a) for a in fields), shards)
+        lists = b.feats is not None
+        fields = (b.wh, b.feats, b.valid) if lists else (b.wh, b.kernels)
+        wh, *rest = (_rows(a, shards, index) for a in pad_templates(tuple(np.asarray(a) for a in fields), shards))
         nf = np.asarray(b.nfeat)
-        nf = np.concatenate([nf, np.ones((-len(nf)) % shards, nf.dtype)])
-        feats, valid = (_rows(a, shards, index) for a in lists) if lists else (None, None)
-        out.append(BankLevel(*(_rows(a, shards, index) for a in (kern, nf, wh)), feats, valid))
+        nf = _rows(np.concatenate([nf, np.ones((-len(nf)) % shards, nf.dtype)]), shards, index)
+        arrays = dict(feats=rest[0], valid=rest[1]) if lists else dict(kernels=rest[0])
+        out.append(BankLevel(nfeat=nf, wh=wh, kdims=level_kdims(b), **arrays))
     return bank_levels_from_numpy(out, device)
 
 
@@ -116,7 +118,7 @@ def restore_local_levels(mesh, path: str, class_id: str, cfg: DetectorConfig) ->
     The rank reads its rows of ``feats`` (its ``Shard(0)`` block over
     ``template``, as ``load_checkpoint(mesh=...)`` places it, into a plain
     tensor) and the class's whole ``valid`` and ``whp``, which are small:
-    each level's kernel extent and feature count are the whole class's, as
+    each level's extent and feature count are the whole class's, as
     ``TemplateBank.finalized`` builds them.  ``Shard(0)`` splits as
     ``torch.chunk`` does, in blocks of ``ceil(N / shards)``: the rows of
     ``shard_bank``'s shard, whose padding (zero templates with ``nfeat`` 1)
@@ -140,9 +142,8 @@ def restore_local_levels(mesh, path: str, class_id: str, cfg: DetectorConfig) ->
         wh = np.zeros((block, 2), np.int32)
         f[:rows], v[:rows] = feats[:, l, :fmax], valid[mine, l, :fmax]
         nfeat[:rows], wh[:rows] = counts[mine], whp[mine, l, :2]
-        kern = build_template_kernels(f, v, int(whp[:, l, 1].max()) + 1, int(whp[:, l, 0].max()) + 1,
-                                      8 * cfg.num_modalities)
-        out.append(BankLevel(kernels=kern, nfeat=nfeat, wh=wh, feats=f, valid=v))
+        kdims = (int(whp[:, l, 1].max()) + 1, int(whp[:, l, 0].max()) + 1)
+        out.append(BankLevel(nfeat=nfeat, wh=wh, kdims=kdims, feats=f, valid=v))
     return out, nbytes
 
 
@@ -216,14 +217,14 @@ def sharded_detect(
       depth_batch: (B, H, W) depth in mm, or None (matched as zeros).
       bank: this rank's template shard (``shard_bank`` with the mesh's
         template size and this rank's template coordinate), on the rank's
-        device; a shard without feature lists refines by the grouped conv
-        (``pyramid_refine``).
+        device; a shard of kernels takes the dense-kernel route
+        (``coarse_scores``, ``pyramid_refine``).
 
     Returns this rank's data shard (tid, x, y, score, keep), each (B_l, K)
     on the bank's device: tid in global template ids, score sorted
     descending (-1 on dead slots), keep the NMS survivors.
     """
-    rgb, dep = data_shard(mesh, rgb_batch, depth_batch, bank.kernels[0].device)
+    rgb, dep = data_shard(mesh, rgb_batch, depth_batch, bank.nfeats[0].device)
     return detect_shard(mesh, rgb, dep, bank, cfg, threshold)
 
 
@@ -236,7 +237,7 @@ def detect_shard(mesh, rgb: torch.Tensor, depth: Optional[torch.Tensor], bank: D
     tid, x, y, score, _ = detect_frame_core(rgb if cfg.use_color else None, depth, bank, cfg, threshold,
                                             apply_nms=False)
     wh = bank.whs[0][tid.long()]
-    n_local = bank.kernels[0].shape[0]
+    n_local = bank.nfeats[0].shape[0]
     fields = _pack([tid + t_idx * n_local, x, y, score, wh[..., 0], wh[..., 1]], dim=-2)
     merged = merge_topk(all_gather(fields, mesh, "template").movedim(0, 1), cfg.top_k)  # (B_l, 6, K)
     mtid, mx, my, mw, mh = (merged[:, i].to(torch.int32) for i in (0, 1, 2, 4, 5))

@@ -82,13 +82,12 @@ def tiled_detect(
     """
     tidx = _coordinate(mesh)[2]
     n_tile = mesh.size(2)
-    dev = bank.kernels[0].device
+    dev = bank.nfeats[0].device
     h = rgb.shape[0]
     if h % n_tile:
         raise ValueError(f"{h} rows do not divide over {n_tile} tiles")
     slab = h // n_tile
-    kh0 = bank.kernels[0].shape[2]
-    halo = min(required_halo(cfg, kh0), slab * (n_tile - 1))
+    halo = min(required_halo(cfg, bank.kdims[0][0]), slab * (n_tile - 1))
     hops = -(-halo // slab)  # slabs the halo spans
     rows = slice(tidx * slab, (tidx + 1) * slab)
 

@@ -83,7 +83,7 @@ def prefixes(rgb, depth, bank, cfg: DetectorConfig = CFG, threshold: float = THR
 
     def coarse():
         pyramid = maps()
-        return pyramid, coarse_scores(pyramid, bank.kernels, bank.nfeats, tal, bank.feats, bank.valids)
+        return pyramid, coarse_scores(pyramid, bank, tal)
 
     def topk():
         pyramid, scores = coarse()

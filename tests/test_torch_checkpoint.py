@@ -37,7 +37,7 @@ from sixdpose_tpu_torch.parallel.sharded_match import local_bank, restore_local_
 TIMEOUT = 240.0
 MESH = (2, 2, 1)
 CLASSES = {"many": 89, "one": 1}  # 89 over template 2 splits 45 / 44; one template leaves a rank none
-FIELDS = ("kernels", "nfeats", "whs", "feats", "valids")
+FIELDS = ("nfeats", "whs", "feats", "valids")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -162,7 +162,9 @@ def test_roundtrip_keeps_templates_arrays_and_infos(saved):
 
 
 def _numpy_bank(bank) -> dict:
-    return {f: [t.numpy() for t in getattr(bank, f)] for f in FIELDS}
+    """The arrays of a feature-list bank as numpy, with its extents and
+    (None) kernels."""
+    return {**{f: [t.numpy() for t in getattr(bank, f)] for f in FIELDS}, "kdims": bank.kdims, "kernels": bank.kernels}
 
 
 def _restore_rank(rank, world, path, bank, mesh_shape):
@@ -221,6 +223,8 @@ def test_restore_local_bank_equals_local_bank(ranks, cid):
         for f in FIELDS:
             for a, b in zip(r["restored"][cid][f], r["local"][cid][f]):
                 assert a.dtype == b.dtype and np.array_equal(a, b), (r["coordinate"], cid, f)
+        assert r["restored"][cid]["kdims"] == r["local"][cid]["kdims"], (r["coordinate"], cid)
+        assert r["restored"][cid]["kernels"] is None and r["local"][cid]["kernels"] is None
 
 
 @pytest.mark.parametrize("cid", list(CLASSES))
@@ -248,8 +252,10 @@ def test_run_jobs_checkpoint_jobs_equal_the_levels_jobs(saved, ranks):
         t_idx = r["coordinate"][1]
         for j, cid in enumerate(CLASSES):
             want = shard_bank(bank.finalized(cid), 2, t_idx, "cpu")
-            for lv, wk, wn, ww, wf, wv in zip(jobs[2 * j + 1]["restore"]["levels"], *(getattr(want, f) for f in FIELDS)):
-                for a, b in zip((lv.kernels, lv.nfeat, lv.wh, lv.feats, lv.valid), (wk, wn, ww, wf, wv)):
+            for lv, wd, wn, ww, wf, wv in zip(jobs[2 * j + 1]["restore"]["levels"], want.kdims,
+                                              *(getattr(want, f) for f in FIELDS)):
+                assert lv.kernels is None and tuple(lv.kdims) == wd
+                for a, b in zip((lv.nfeat, lv.wh, lv.feats, lv.valid), (wn, ww, wf, wv)):
                     assert np.array_equal(a, b.numpy())
     # a template-1 rank of the 89-template class reads fewer blocks than the whole class
     many = [r["jobs"][1]["restore"]["bytes_read"] for r in ranks]

@@ -3,8 +3,8 @@
 The local-refine kernel against its plain version on the card, the
 wrapper's input checks, the detector on the card against its CPU run, the
 scene maps, batched ICP, verification and the fused detect+refine frame on
-the card against their CPU runs, the multi-class path (the matmul
-coarse scorer, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``),
+the card against their CPU runs, the multi-class path (the coarse-scorer
+kernel, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``),
 the multi-scale matchers (``MultiScaleMultiClass``, ``MultiScaleDetector``),
 the rasterizer, ``PoseEstimationService`` and ``run_benchmark`` on the card
 against their CPU runs and the JAX goldens.
@@ -408,15 +408,16 @@ def test_detect_refine_core_waits_for_nothing(cuda):
     assert bool(out[8].cpu().all())
 
 
-# -- every class of a bank (models/multiclass.py, the matmul coarse scorer) ---
+# -- every class of a bank (models/multiclass.py, the coarse scorer) ---------
 #
-# The matcher and the matmul scorer compare exactly; the fused multi-class
+# The matcher and the coarse scorer compare exactly; the fused multi-class
 # frame as the fused frame above.
 
 
 def test_matmul_scorer_on_card_equals_cpu_and_dense(cuda):
-    """Several scales, one of them 0; at scale 1 the conv of the kernels
-    built from the same features gives the same integers."""
+    """The coarse scorer on the card (the kernel) equals its plain version
+    on the CPU at several scales, one of them 0; at scale 1 the conv of the
+    kernels built from the same features gives the same integers."""
     from sixdpose_tpu_torch.ops import similarity as TS
 
     rng = np.random.default_rng(7)
@@ -428,7 +429,7 @@ def test_matmul_scorer_on_card_equals_cpu_and_dense(cuda):
     out = {}
     for device in (cuda, torch.device("cpu")):
         args = [torch.from_numpy(a).to(device) for a in (maps, feats, valid, scales)]
-        out[device.type] = TS.similarity_multiscale_matmul(*args, 8, 28, 28)
+        out[device.type] = TS.similarity_multiscale_auto(*args, 8, 28, 28)
     assert torch.equal(out["cuda"][0].cpu(), out["cpu"][0]) and torch.equal(out["cuda"][1].cpu(), out["cpu"][1])
     kern = torch.from_numpy(TS.build_template_kernels(feats, valid, 28, 28, 16)).to(cuda)
     dense = TS.similarity_dense(torch.from_numpy(maps).to(cuda), kern, 8)
@@ -437,8 +438,8 @@ def test_matmul_scorer_on_card_equals_cpu_and_dense(cuda):
 
 
 
-# The coarse-scorer kernel (csrc/coarse_score.cu) against the matmul route
-# and its plain version: exact, integer sums in float32.
+# The coarse-scorer kernel (csrc/coarse_score.cu) against its plain version
+# and the dense conv: exact, integer sums in float32.
 
 
 @pytest.mark.parametrize("name", EDGE_CASES)
@@ -446,7 +447,9 @@ def test_coarse_kernel_equals_matmul_and_plain(cuda, name):
     """At each edge case of ``tests/coarse_cases.py`` (zero scales, .5
     ties, the extent's border, F = 1 and 8191, B = 1 and 4, padded maps,
     the T-LESS coarse map shape) the kernel's raw sums and counts equal the
-    CPU's matmul route and the plain gather-sum on the card, in one launch."""
+    plain version on the CPU and on the card, in one launch, and at each
+    scale above 0 the dense conv of kernels built from the features at that
+    scale."""
     from sixdpose_tpu_torch.ops import coarse_score as CS
     from sixdpose_tpu_torch.ops import similarity as TS
 
@@ -457,42 +460,41 @@ def test_coarse_kernel_equals_matmul_and_plain(cuda, name):
     raw, nf = TS.similarity_multiscale_auto(*gpu, t, kh, kw)
     torch.cuda.synchronize()
     assert CS.similarity_multiscale_cuda.launches == before + 1
-    want = TS.similarity_multiscale_matmul(*cpu, t, kh, kw)
+    want = TS.similarity_multiscale_auto(*cpu, t, kh, kw)
     plain = TS.similarity_multiscale_sparse(*gpu, t, kh, kw)
     assert raw.dtype == torch.float32 and nf.dtype == torch.int32 and raw.shape == want[0].shape
     assert torch.equal(raw.cpu(), want[0]) and torch.equal(nf.cpu(), want[1])
     assert torch.equal(raw, plain[0]) and torch.equal(nf, plain[1])
+    n = feats.shape[0]
+    for s, sc in enumerate(scales.tolist()):
+        if sc > 0:
+            kern = TS.build_kernels_scaled(gpu[1], gpu[2], sc, kh, kw, maps.shape[-3])
+            assert torch.equal(raw[..., s * n : (s + 1) * n, :, :], TS.similarity_dense(gpu[0], kern, t)), sc
 
 
 @pytest.mark.parametrize("name", ["tless", "linemod"])
 def test_coarse_kernel_at_the_cells_shapes(cuda, name):
-    """At the benchmark cells' coarse shapes the kernel equals the card's
-    matmul route (the per-bucket addmm it replaces) and the plain
-    gather-sum, raw and counts."""
+    """At the benchmark cells' coarse shapes the kernel equals the plain
+    gather-sum on the card, raw and counts."""
     from sixdpose_tpu_torch.ops import similarity as TS
 
     call = synthetic.coarse_scorer_call(name)
     args = [torch.from_numpy(a).to(cuda) for a in call[:4]] + list(call[4:])
     raw, nf = TS.similarity_multiscale_auto(*args)
-    want = TS.similarity_multiscale_matmul(*args)
-    assert torch.equal(raw, want[0]) and torch.equal(nf, want[1])
-    del want
     plain = TS.similarity_multiscale_sparse(*args)
     assert torch.equal(raw, plain[0]) and torch.equal(nf, plain[1])
 
 
-def test_coarse_kernel_runs_once_a_frame(cuda, monkeypatch):
-    """A frame of the multi-class matcher's feature-list branch and of the
-    multi-scale matcher launches the coarse kernel once, and no ``addmm``
-    runs inside its ``coarse`` stage."""
+def test_coarse_kernel_runs_once_a_frame(cuda):
+    """A frame of the multi-class matcher (a small feature-list superbank)
+    and of the multi-scale matcher launches the coarse kernel once, and no
+    ``addmm`` runs inside its ``coarse`` stage."""
     from torch.profiler import ProfilerActivity, profile
 
-    from sixdpose_tpu_torch.models import detector as TD
     from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
     from sixdpose_tpu_torch.models.multiscale import MultiScaleMultiClass
     from sixdpose_tpu_torch.ops import coarse_score as CS
 
-    monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
     w, det = _multiclass(cuda)
     mc = MultiClassMatcher(det, device=cuda)
     w_ms = synthetic.multiscale_workload(classes=3, views=24)
@@ -520,25 +522,25 @@ def _multiclass(device, classes=3, views=40):
     return w, synthetic.multiclass_detector(w, device)
 
 
-@pytest.mark.parametrize("matmul_branch", [False, True])
-def test_multiclass_matcher_on_card_equals_cpu(cuda, monkeypatch, matmul_branch):
+@pytest.mark.parametrize("dense_twin", [False, True])
+def test_multiclass_matcher_on_card_equals_cpu(cuda, dense_twin):
     """A cut synthetic multi-class workload (3 classes x 40 views, 320 x 240):
-    the card's result equals the port's CPU run everywhere, with the dense
-    and with the matmul coarse scorer; one refine kernel launch per frame
-    for every class."""
-    from sixdpose_tpu_torch.models import detector as TD
+    the card's result equals the port's CPU run everywhere, with the
+    feature-list superbank (one refine kernel launch per frame for every
+    class) and with its ``without_features()`` twin (the dense conv and
+    the grouped conv: no refine kernel launch)."""
     from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 
-    if matmul_branch:
-        monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
     w, det = _multiclass(cuda)
     gpu, cpu = MultiClassMatcher(det, device=cuda), MultiClassMatcher(det, device="cpu")
+    if dense_twin:
+        gpu.bank, cpu.bank = gpu.bank.without_features(), cpu.bank.without_features()
     before = LR.similarity_local_sparse_cuda.launches
     for thr in (55.0, 30.0):
         g = gpu.match_arrays(w["rgb"], w["depth"], thr)
         assert _same(g, cpu.match_arrays(w["rgb"], w["depth"], thr))
     assert bool((g[3] >= 0).all())  # every class fills its 128 slots at 30
-    assert LR.similarity_local_sparse_cuda.launches == before + 2
+    assert LR.similarity_local_sparse_cuda.launches == before + (0 if dense_twin else 2)
     key = lambda m: (m.class_id, m.template_id, m.x, m.y, m.similarity)  # noqa: E731
     assert [key(m) for m in gpu.match(w["rgb"], w["depth"], 30.0)] == [key(m) for m in cpu.match(w["rgb"], w["depth"], 30.0)]
 
@@ -1036,8 +1038,8 @@ def _checkpoint_rank(rank, world, path, cid, cfg):
     return {"coordinate": tuple(mesh.get_coordinate()),
             "templates": [[(lv.features, lv.width, lv.height) for lv in t] for t in full.templates[cid]],
             "shard_device": full.shards[cid]["feats"].to_local().device.type,
-            "bank_device": bank.kernels[0].device.type,
-            "bank": [[t.cpu().numpy() for t in getattr(bank, f)] for f in ("kernels", "nfeats", "whs", "feats", "valids")]}
+            "bank_device": bank.nfeats[0].device.type, "bank_kdims": bank.kdims, "bank_kernels": bank.kernels,
+            "bank": [[t.cpu().numpy() for t in getattr(bank, f)] for f in ("nfeats", "whs", "feats", "valids")]}
 
 
 def test_checkpoint_restores_onto_the_card_as_on_the_cpu(cuda, tmp_path):
@@ -1059,7 +1061,8 @@ def test_checkpoint_restores_onto_the_card_as_on_the_cpu(cuda, tmp_path):
         for t, got in zip(det.bank.templates[cid], res["templates"]):
             assert all(np.array_equal(a.features, f) and (a.width, a.height) == (w, h) for a, (f, w, h) in zip(t, got))
         want = shard_bank(levels, 2, res["coordinate"][1], "cpu")
-        for f, got in zip(("kernels", "nfeats", "whs", "feats", "valids"), res["bank"]):
+        assert res["bank_kernels"] is None and res["bank_kdims"] == want.kdims
+        for f, got in zip(("nfeats", "whs", "feats", "valids"), res["bank"]):
             for a, b in zip(got, getattr(want, f)):
                 np.testing.assert_array_equal(a, b.numpy())
     common = dict(mesh=(2, 2, 1), rgb=frames, depth=depths, cfg=det.cfg, threshold=30.0)

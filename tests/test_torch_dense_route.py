@@ -194,7 +194,7 @@ def test_detect_frame_core_without_lists_matches_jax(jdet, threshold):
     got = TD.detect_frame_core(_t(rgb), _t(depth.astype(np.int32)), bank, cfg, threshold)
     assert got[0].shape == (2, 16)
     feats, valids = jdet._device_feats["disc"]
-    sparse = DeviceBank(bank.kernels, bank.nfeats, bank.whs, tuple(_t(a) for a in feats), tuple(_t(a) for a in valids))
+    sparse = DeviceBank(bank.nfeats, bank.whs, bank.kdims, tuple(_t(a) for a in feats), tuple(_t(a) for a in valids))
     sparse_out = TD.detect_frame_core(_t(rgb), _t(depth.astype(np.int32)), sparse, cfg, threshold)
     live = 0
     for f in range(2):

@@ -23,6 +23,7 @@ from sixdpose_tpu.config import DetectorConfig as JConfig
 from sixdpose_tpu.models import detector as JD
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import ColorGradientConfig, DetectorConfig
+from sixdpose_tpu_torch.convert import DeviceBank
 from sixdpose_tpu_torch.models import detector as TD
 
 TESTDATA = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "sixdpose_tpu_torch", "testdata")
@@ -153,37 +154,39 @@ def test_detector_needs_cuda_unless_cpu_is_asked():
 
 
 def test_coarse_matmul_branch_not_ported(monkeypatch):
-    """Above 2e10 multiply-adds the coarse level goes to the matmul scorer
-    when the feature lists are given (it used to raise there), and to the
-    dense conv without them, as in the JAX package.  The scorers are
-    stubbed: this checks the dispatch; tests/test_torch_similarity_matmul.py
-    checks the branch's values."""
-    kern = torch.zeros((4000, 16, 81, 81), dtype=torch.int8)
+    """The coarse route follows the bank's kind at any size: a bank with
+    feature lists goes to the feature-list scorer at scale 1 over its
+    extent, small or large; a bank of kernels to the dense conv.  No size
+    line is left.  The scorers are stubbed: this checks the dispatch;
+    tests/test_torch_similarity_matmul.py checks the values."""
+    assert not hasattr(TD, "_MATMUL_MACS") and not hasattr(TD, "coarse_macs")
     maps = torch.zeros((1, 16, 480, 640), dtype=torch.uint8)
-    feats = torch.zeros((4000, 8, 3), dtype=torch.int32)
-    valids = torch.ones((4000, 8), dtype=torch.bool)
-    assert TD.coarse_macs(maps.shape, kern.shape, 4) > TD._MATMUL_MACS
     taken = []
 
-    def matmul(maps_, feats_, valid_, scales, t, kh, kw):
-        taken.append(("matmul", t, kh, kw, scales.tolist()))
+    def scorer(maps_, feats_, valid_, scales, t, kh, kw):
+        taken.append(("feature lists", t, kh, kw, scales.tolist()))
         nf = torch.arange(feats_.shape[0], dtype=torch.int32) % 2
         return torch.full((1, feats_.shape[0], 2, 2), 8.0), nf
 
     def dense(maps_, kern_, t):
-        taken.append(("dense", t))
+        taken.append(("dense", t, tuple(kern_.shape[-2:])))
         return torch.zeros((1, kern_.shape[0], 2, 2))
 
-    monkeypatch.setattr(TD, "similarity_multiscale_auto", matmul)
+    monkeypatch.setattr(TD, "similarity_multiscale_auto", scorer)
     monkeypatch.setattr(TD, "similarity_dense", dense)
-    nf = [torch.full((4000,), 8)] * 2
-    scores = TD.coarse_scores([maps, maps], [kern, kern], nf, (4, 4), [feats, feats], [valids, valids])
-    assert taken == [("matmul", 4, 81, 81, [1.0])]
-    # 100 * 8 / (4 * nfeat) where the scale has features, -1 where it has none.
-    assert torch.equal(scores[0, 1::2], torch.full((2000, 2, 2), 200.0))
-    assert torch.equal(scores[0, 0::2], torch.full((2000, 2, 2), -1.0))
-    TD.coarse_scores([maps, maps], [kern, kern], nf, (4, 4))
-    assert taken[-1] == ("dense", 4)
+    for n, ext in ((2, 9), (4000, 81)):
+        nf = (torch.full((n,), 8),) * 2
+        lists = DeviceBank(nf, (None, None), ((ext, ext),) * 2, (torch.zeros((n, 8, 3), dtype=torch.int32),) * 2,
+                           (torch.ones((n, 8), dtype=torch.bool),) * 2)
+        scores = TD.coarse_scores([maps, maps], lists, (4, 4))
+        assert taken[-1] == ("feature lists", 4, ext, ext, [1.0])
+        # 100 * 8 / (4 * nfeat) where the scale has features, -1 where it has none.
+        assert torch.equal(scores[0, 1::2], torch.full((n // 2, 2, 2), 200.0))
+        assert torch.equal(scores[0, 0::2], torch.full((n // 2, 2, 2), -1.0))
+        kernels = DeviceBank(nf, (None, None), ((ext, ext),) * 2, kernels=(torch.zeros((n, 16, ext, ext), dtype=torch.int8),) * 2)
+        TD.coarse_scores([maps, maps], kernels, (4, 4))
+        assert taken[-1] == ("dense", 4, (ext, ext))
+    assert len(taken) == 4
 
 
 def test_planted_golden_on_cpu():

@@ -23,7 +23,7 @@ from sixdpose_tpu.models.detector import Detector as JDetector
 from sixdpose_tpu.models.multiclass import MultiClassMatcher as JMatcher
 from sixdpose_tpu_torch import synthetic
 from sixdpose_tpu_torch.config import ColorGradientConfig, DetectorConfig
-from sixdpose_tpu_torch.convert import multiclass_bank_from_numpy
+from sixdpose_tpu_torch.convert import multiclass_bank_from_numpy, without_features
 from sixdpose_tpu_torch.models import detector as TD
 from sixdpose_tpu_torch.models.detector import Detector as TDetector
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher, match_multiclass_core
@@ -99,17 +99,24 @@ def _assert_same_live(want, got):
 
 @pytest.mark.parametrize("class_ids", [None, ["square", "disc"], ["triangle"]])
 def test_superbank_equals_jax(three_class, class_ids):
-    """Padded kernels and feature lists, counts, extents and the (C, Nmax)
-    pad map, exactly as MultiClassMatcher._build makes them."""
+    """Padded feature lists, counts, the (C, Nmax) pad map and the extents
+    of the padded kernels, exactly as MultiClassMatcher._build makes them;
+    the superbank holds no kernels, and its ``without_features()`` twin
+    holds JAX's padded kernels."""
     jdet, tdet = three_class
     jm = JMatcher(jdet, class_ids)
     tm = MultiClassMatcher(tdet, class_ids, device="cpu")
     assert tm.class_ids == jm.class_ids and tm.nmax == jm.nmax
     np.testing.assert_array_equal(tm.pad_map.numpy(), np.asarray(jm.pad_map))
-    for name, jname in (("kernels", "kernels"), ("nfeats", "nfeats"), ("whs", "whs"), ("feats", "feats"), ("valids", "valids")):
-        for t_arr, j_arr in zip(getattr(tm.bank, name), getattr(jm, jname)):
+    for name in ("nfeats", "whs", "feats", "valids"):
+        for t_arr, j_arr in zip(getattr(tm.bank, name), getattr(jm, name)):
             assert t_arr.shape == j_arr.shape, name
             np.testing.assert_array_equal(t_arr.numpy(), np.asarray(j_arr))
+    assert tm.bank.kernels is None
+    assert tm.bank.kdims == tuple(tuple(k.shape[-2:]) for k in jm.kernels)
+    for t_arr, j_arr in zip(tm.bank.without_features().kernels, jm.kernels):
+        assert t_arr.shape == j_arr.shape and t_arr.dtype == torch.int8
+        np.testing.assert_array_equal(t_arr.numpy(), np.asarray(j_arr))
 
 
 @pytest.mark.parametrize("threshold", [70.0, 40.0])
@@ -155,18 +162,24 @@ def test_multiclass_empty_scene(three_class):
 
 
 def test_matmul_branch_gives_the_dense_result(three_class, monkeypatch):
-    """With the MAC line at 0 the superbank's coarse level takes the matmul
-    scorer; its scale-1 integers are the conv's, so the result is the JAX
-    matcher's (dense) result."""
+    """The feature-list superbank, however small, takes the feature-list
+    scorer at the coarse level; its scale-1 integers are the conv's, so it
+    gives the live results of its ``without_features()`` twin (the dense
+    conv, then the grouped conv) and of the JAX matcher (dense at this
+    size)."""
     jdet, tdet = three_class
     want = JMatcher(jdet).match_arrays(_scene(), None, 40.0)
     tm = MultiClassMatcher(tdet, device="cpu")
     taken = []
-    matmul = TD.similarity_multiscale_auto
-    monkeypatch.setattr(TD, "_MATMUL_MACS", 0)
-    monkeypatch.setattr(TD, "similarity_multiscale_auto", lambda *a: taken.append(1) or matmul(*a))
-    assert _assert_same_live(want, tm.match_arrays(_scene(), None, 40.0)) >= 2
+    scorer = TD.similarity_multiscale_auto
+    monkeypatch.setattr(TD, "similarity_multiscale_auto", lambda *a: taken.append(1) or scorer(*a))
+    got = tm.match_arrays(_scene(), None, 40.0)
+    assert _assert_same_live(want, got) >= 2
     assert taken == [1]
+    twin = match_multiclass_core(tm.response_pyramid(_scene(), None), tm.bank.without_features(), tm.pad_map,
+                                 tuple(tm.cfg.t_at_level), 40.0, tm.cfg.top_k, tm.cfg.nms_iou)
+    assert taken == [1]
+    assert _assert_same_live(got, twin) >= 2
 
 
 def test_match_multiclass_core_without_nms_keeps_every_live_slot(three_class):
@@ -183,14 +196,21 @@ def test_match_multiclass_core_without_nms_keeps_every_live_slot(three_class):
 
 
 def test_multiclass_bank_of_numpy_levels_takes_either_package(three_class):
-    """The superbank builder takes the JAX BankLevels as well as the port's."""
+    """``multiclass_bank_from_numpy`` takes the JAX BankLevels as well as the port's,
+    of either kind: the feature-list superbanks carry the same lists,
+    counts, extents and no kernels; those of ``without_features`` levels the
+    same kernels, counts, extents and no lists."""
     jdet, tdet = three_class
-    from_j = multiclass_bank_from_numpy([jdet.bank.finalized(c) for c in KINDS], "cpu")
-    from_t = multiclass_bank_from_numpy([tdet.bank.finalized(c) for c in KINDS], "cpu")
-    assert torch.equal(from_j.pad_map, from_t.pad_map) and from_j.nmax == from_t.nmax == 2
-    for name in ("kernels", "nfeats", "whs", "feats", "valids"):
-        for a, b in zip(getattr(from_j.bank, name), getattr(from_t.bank, name)):
-            assert a.dtype == b.dtype and torch.equal(a, b), name
+    for prep, fields, absent in ((list, ("nfeats", "whs", "feats", "valids"), "kernels"),
+                                 (without_features, ("kernels", "nfeats", "whs"), "feats")):
+        from_j = multiclass_bank_from_numpy([prep(jdet.bank.finalized(c)) for c in KINDS], "cpu")
+        from_t = multiclass_bank_from_numpy([prep(tdet.bank.finalized(c)) for c in KINDS], "cpu")
+        assert torch.equal(from_j.pad_map, from_t.pad_map) and from_j.nmax == from_t.nmax == 2
+        assert from_j.bank.kdims == from_t.bank.kdims
+        assert getattr(from_j.bank, absent) is None and getattr(from_t.bank, absent) is None
+        for name in fields:
+            for a, b in zip(getattr(from_j.bank, name), getattr(from_t.bank, name)):
+                assert a.dtype == b.dtype and torch.equal(a, b), name
 
 
 def test_planted_mc_golden_match_on_cpu():

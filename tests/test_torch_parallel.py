@@ -294,7 +294,7 @@ def test_shard_bank_matches_jax_padding(banks, shards):
     """``shard_bank`` gives JAX's ``pad_templates`` shards, ``nfeat`` padded
     with ones as the JAX callers pad it."""
     levels = banks[0].bank.finalized("objs")
-    fields = ("kernels", "nfeat", "wh", "feats", "valid")
+    fields = ("nfeat", "wh", "feats", "valid")
     for l, b in enumerate(levels):
         padded = jpad_templates(tuple(np.asarray(getattr(b, f)) for f in fields), shards)
         nf = np.concatenate([b.nfeat, np.ones((-len(b.nfeat)) % shards, b.nfeat.dtype)])
@@ -304,8 +304,9 @@ def test_shard_bank_matches_jax_padding(banks, shards):
         for s in range(shards):
             got = shard_bank(levels, shards, s, "cpu")
             rows = slice(s * n_local, (s + 1) * n_local)
-            for t, w in zip((got.kernels, got.nfeats, got.whs, got.feats, got.valids),
-                            (padded[0], nf, padded[2], padded[3], padded[4])):
+            # Every shard keeps the whole class's extent and carries no kernels.
+            assert got.kernels is None and got.kdims[l] == b.kdims
+            for t, w in zip((got.nfeats, got.whs, got.feats, got.valids), (nf, padded[1], padded[2], padded[3])):
                 np.testing.assert_array_equal(t[l].numpy(), w[rows])
 
 
@@ -345,10 +346,11 @@ def test_required_halo_matches_jax(t_at_level, kh):
 
 
 def test_level0_kernel_height_is_jax_layout(banks):
-    """``tiled_detect`` reads kh0 from the kernels as JAX does."""
+    """``tiled_detect`` reads kh0 from the bank's extent, which is the
+    height of JAX's kernels."""
     jdet = JDetector.read_classes(os.path.join(TESTDATA, "parallel_bank.npz"),
                                   JConfig(t_at_level=(4, 8), use_depth=False, top_k=16, color=JColor(num_features=16)))
-    assert banks[0].device_bank("objs").kernels[0].shape[2] == jdet.device_bank("objs")[0][0].shape[2]
+    assert banks[0].device_bank("objs").kdims[0][0] == jdet.device_bank("objs")[0][0].shape[2]
 
 
 @contextlib.contextmanager

@@ -20,7 +20,6 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from sixdpose_tpu_torch import synthetic
-from sixdpose_tpu_torch.models import detector as D
 from sixdpose_tpu_torch.models.multiclass import MultiClassMatcher
 from sixdpose_tpu_torch.models.multiscale import MultiScaleMultiClass
 from sixdpose_tpu_torch.models.pipeline import FusedMultiClassPipeline
@@ -46,9 +45,10 @@ def one_thread():
 @pytest.fixture(scope="module")
 def routes():
     """One frame of each route at a cut size: the fused multi-class frame,
-    ``MultiClassMatcher.match`` (the dense coarse conv, and the matmul
-    scorer of the benchmark's banks), ``MultiScaleMultiClass.match``; the
-    matchers at thresholds that keep matches (142 and 17)."""
+    ``MultiClassMatcher.match`` (its feature-list superbank, and under
+    ``multiclass_matmul`` that superbank's ``without_features()`` twin: the
+    dense coarse conv and the grouped conv), ``MultiScaleMultiClass.match``;
+    the matchers at thresholds that keep matches (142 and 17)."""
     w = synthetic.multiclass_workload(classes=3, views=6)
     det = synthetic.multiclass_detector(w, "cpu")
     args = dict(synthetic.multiclass_pipeline_args(w), max_refine=4, icp_seeds=2)
@@ -59,17 +59,17 @@ def routes():
                               num_scales=ws["num_scales"], device="cpu")
 
     @contextlib.contextmanager
-    def matmul():
-        macs, D._MATMUL_MACS = D._MATMUL_MACS, 0
+    def dense():
+        lists, mc.bank = mc.bank, mc.bank.without_features()
         try:
             yield
         finally:
-            D._MATMUL_MACS = macs
+            mc.bank = lists
 
     return {
         "fused": (contextlib.nullcontext, lambda: pipe(w["rgb"], w["depth"], w["threshold"])),
         "multiclass": (contextlib.nullcontext, lambda: mc.match(w["rgb"], w["depth"], 40.0)),
-        "multiclass_matmul": (matmul, lambda: mc.match(w["rgb"], w["depth"], 40.0)),
+        "multiclass_matmul": (dense, lambda: mc.match(w["rgb"], w["depth"], 40.0)),
         "multiscale": (contextlib.nullcontext, lambda: ms.match(ws["rgb"], ws["depth"], 55.0)),
     }
 

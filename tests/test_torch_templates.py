@@ -13,6 +13,7 @@ from sixdpose_tpu.config import ColorGradientConfig as JColor
 from sixdpose_tpu.config import DetectorConfig as JConfig
 from sixdpose_tpu.models import templates as JT
 from sixdpose_tpu_torch.config import ColorGradientConfig, DetectorConfig
+from sixdpose_tpu_torch.convert import without_features
 from sixdpose_tpu_torch.models import templates as TT
 
 
@@ -80,8 +81,9 @@ def _random_levels(rng, n_levels=2):
 @pytest.mark.parametrize("direction", ["jax_to_torch", "torch_to_jax"])
 def test_bank_roundtrip_between_packages(tmp_path, rng, direction):
     """A bank saved by one package loads in the other with identical
-    templates, infos and finalized arrays (kernels, nfeat, wh, feats,
-    valid) and padded arrays."""
+    templates, infos and finalized arrays (nfeat, wh, feats, valid; the
+    port's levels hold no kernels, but their extent and their
+    ``without_features`` kernels are JAX's) and padded arrays."""
     jcfg, tcfg = JConfig(t_at_level=(5, 8)), DetectorConfig(t_at_level=(5, 8))
     src, dst = (JT, TT) if direction == "jax_to_torch" else (TT, JT)
     src_bank = src.TemplateBank(jcfg if src is JT else tcfg)
@@ -94,9 +96,15 @@ def test_bank_roundtrip_between_packages(tmp_path, rng, direction):
     assert dst_bank.num_templates("obj") == 4
     assert dst_bank.infos["obj"][2]["view"] == 2
     for a, b in zip(src_bank.finalized("obj"), dst_bank.finalized("obj")):
-        for name in ("kernels", "nfeat", "wh", "feats", "valid"):
+        for name in ("nfeat", "wh", "feats", "valid"):
             np.testing.assert_array_equal(getattr(b, name), getattr(a, name))
             assert getattr(b, name).dtype == getattr(a, name).dtype
+    j_levels, t_levels = ((src_bank, dst_bank) if src is JT else (dst_bank, src_bank))
+    j_levels, t_levels = j_levels.finalized("obj"), t_levels.finalized("obj")
+    for j, t, d in zip(j_levels, t_levels, without_features(t_levels)):
+        assert t.kernels is None and t.kdims == j.kernels.shape[-2:]
+        np.testing.assert_array_equal(d.kernels, j.kernels)
+        assert d.kernels.dtype == j.kernels.dtype
     pa, pb = src_bank.to_padded_arrays()["obj"], dst_bank.to_padded_arrays()["obj"]
     for name in ("feats", "valid", "whp"):
         np.testing.assert_array_equal(pb[name], pa[name])
