@@ -351,6 +351,7 @@ from sixdpose_tpu_torch.ops import floyd_steinberg as FSK
 from sixdpose_tpu_torch.ops import icp as OI
 from sixdpose_tpu_torch.ops import local_refine as LR
 from sixdpose_tpu_torch.ops import quantize as Q
+from sixdpose_tpu_torch.ops import response_pyramid as RPK
 from sixdpose_tpu_torch.ops import segment_sum as SS
 from sixdpose_tpu_torch.ops.scale_proposal import propose_depth_bins
 from sixdpose_tpu_torch.ops.similarity import (
@@ -525,6 +526,44 @@ def counting_icp_calls(phase: str, least: int = 0):
     check(launches == len(calls), f"{phase}: {launches} ICP-kernel launches for {len(calls)} icp_batch calls")
     check(len(calls) >= least, f"{phase}: {len(calls)} icp_batch calls on the card, expected at least {least}")
     ICP_BY_PHASE[phase] = launches
+
+
+# Pyramid-launcher calls of each phase whose main path builds response
+# pyramids (``counting_pyramid_calls``); the kernels line reports their sum.
+PYRAMID_BY_PHASE: dict = {}
+# The modules ``_build_response_pyramid`` is looked up in.
+PYRAMID_CALLERS = (D, M, P, tools_stages)
+
+
+@contextmanager
+def counting_pyramid_calls(phase: str, least: int = 0):
+    """Set the pyramid launcher's call count to 0, record every
+    ``_build_response_pyramid`` call on card tensors with pixels that the
+    main path makes (at each name in ``PYRAMID_CALLERS``), and on leaving
+    check one launcher call per such call and at least ``least`` calls, and
+    keep the count under ``phase`` in ``PYRAMID_BY_PHASE``.  Yields the list
+    of calls (the image shape each)."""
+    calls: list = []
+    original = D._build_response_pyramid
+
+    def counting(rgb, depth, cfg):
+        image = rgb if cfg.use_color else depth
+        if image is not None and image.is_cuda and image.numel() > 0:
+            calls.append(tuple(image.shape))
+        return original(rgb, depth, cfg)
+
+    RPK.response_pyramid_cuda.launches = 0
+    for m in PYRAMID_CALLERS:
+        m._build_response_pyramid = counting
+    try:
+        yield calls
+    finally:
+        for m in PYRAMID_CALLERS:
+            m._build_response_pyramid = original
+    launches = RPK.response_pyramid_cuda.launches
+    check(launches == len(calls), f"{phase}: {launches} pyramid-launcher calls for {len(calls)} card pyramids")
+    check(len(calls) >= least, f"{phase}: {len(calls)} card pyramids, expected at least {least}")
+    PYRAMID_BY_PHASE[phase] = launches
 
 
 @contextmanager
@@ -1090,6 +1129,77 @@ def phase_icp(dev) -> dict:
                  "plain_ms 3 windows of one icp_batch_plain call replayed from a CUDA graph; kernels per call by "
                  "torch.profiler; host_us: enqueue time a call back to back; bound: bytes once each over 3.35 TB/s "
                  "against ICP_OPS at 67 TFLOP/s"))
+    return cases
+
+
+def pyramid_bound(b: int, h: int, w: int, cfg: DetectorConfig) -> dict:
+    """Least time of one pyramid call on the card: the frames' RGB and depth
+    read once and every level's maps written once over 3.35 TB/s."""
+    nbytes = b * h * w * (3 * cfg.use_color + 4 * cfg.use_depth)
+    nbytes += sum(b * 8 * cfg.num_modalities * hl * wl for hl, wl in RPK.level_shapes(h, w, cfg.pyramid_levels))
+    return {"bytes": nbytes, "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes"}
+
+
+def time_pyramid(dev, h: int, w: int, seed: int) -> dict:
+    """The pyramid kernels at a cell's frame (one frame, the cells'
+    ``DetectorConfig(t_at_level=(5, 8))``): every level equal to the plain
+    version's on the card and on the CPU to the byte; then its time replayed
+    from a CUDA graph and launched from Python, the kernels one call
+    launches and the host microseconds it takes to enqueue them, beside the
+    bound and the plain version's time, kernels and host time."""
+    cfg = DetectorConfig(t_at_level=(5, 8))
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (1, h, w, 3)).astype(np.uint8)
+    rgb[:, h // 4 : h // 2, w // 4 : w // 2] = (200, 40, 90)
+    yy, xx = np.mgrid[0:h, 0:w]
+    dep = (800.0 + 0.8 * xx - 0.5 * yy + rng.normal(0, 3.0, (h, w)))[None]
+    dep[:, : h // 6, : w // 5] = 0
+    rgb_c, dep_c = torch.from_numpy(rgb), torch.from_numpy(dep.astype(np.int32))
+    rgb_d, dep_d = rgb_c.to(dev), dep_c.to(dev)
+    kernel = lambda: D._build_response_pyramid(rgb_d, dep_d, cfg)  # noqa: E731
+    plain = lambda: D._build_response_pyramid_plain(rgb_d, dep_d, cfg)  # noqa: E731
+    before = RPK.response_pyramid_cuda.launches
+    got = kernel()
+    check(RPK.response_pyramid_cuda.launches == before + 1, "the card pyramid did not call the launcher once")
+    for g, c, p in zip(got, plain(), D._build_response_pyramid_plain(rgb_c, dep_c, cfg)):
+        check(torch.equal(g, c) and torch.equal(g.cpu(), p), f"pyramid kernels differ from the plain version ({h} x {w})")
+    bound = pyramid_bound(1, h, w, cfg)
+    kern_ms = graph_ms(kernel, reps=7, inner=20)
+    out = {
+        "frame": [h, w], "t_at_level": list(cfg.t_at_level), "modalities": cfg.num_modalities,
+        "kernel_ms": kern_ms,
+        "kernel_eager_ms": cuda_ms(kernel, reps=7, inner=20),
+        "plain_ms": graph_ms(plain, reps=3, inner=1),
+        "plain_eager_ms": cuda_ms(plain, reps=3, inner=1),
+        "library_ms": "none",
+        "kernels_per_call": kernel_launches(kernel),
+        "plain_kernels_per_call": kernel_launches(plain),
+        "host_us_per_call": host_us(kernel, n=200),
+        "plain_host_us_per_call": host_us(plain, n=5),
+        "device_us_by_kernel": device_us_by_kernel(kernel),
+        "bound": bound,
+    }
+    out["times_bound"] = kern_ms / bound["bound_ms"]
+    return out
+
+
+def phase_pyramid(dev) -> dict:
+    """The pyramid kernels at the T-LESS cells' frame (720 x 540) and the
+    LINEMOD cells' (640 x 480) (``time_pyramid``).  Its launcher calls
+    (timing loops and profiles) are its own: the count starts from 0 and
+    the kernels line leaves them out."""
+    t0 = time.perf_counter()
+    RPK.response_pyramid_cuda.launches = 0
+    cases = {"tless_720x540": time_pyramid(dev, 540, 720, 0), "linemod_640x480": time_pyramid(dev, 480, 640, 1)}
+    torch.cuda.synchronize()
+    emit("pyramid", t0, nvidia_smi=nvidia_smi(), tolerance="exact (torch.equal to _build_response_pyramid_plain "
+         "on the card and on the CPU)", cases=cases, launcher_calls=RPK.response_pyramid_cuda.launches,
+         method=("CUDA events, medians: kernel_ms 7 windows of 20 calls replayed from one CUDA graph; "
+                 "kernel_eager_ms the same 20 calls issued from Python; plain_ms 3 windows of one plain call "
+                 "replayed from a CUDA graph, plain_eager_ms issued from Python; library_ms none (no single "
+                 "library call computes the pyramid); kernels per call by torch.profiler; host_us: enqueue time "
+                 "a call back to back; bound: RGB and depth read and every level's maps written once over "
+                 "3.35 TB/s"))
     return cases
 
 
@@ -3604,41 +3714,48 @@ def main() -> int:
     emit("build", t0, kernels={n: {"seconds": round(b["seconds"], 3), "ptxas": ptxas[n]} for n, b in built.items()})
     if sys.argv[1:] == ["parallel"]:
         return parallel_only(dev, smi)
-    if sys.argv[1:] in (["coarse_score"], ["icp"]):
-        (phase_coarse_score if sys.argv[1] == "coarse_score" else phase_icp)(dev)
+    single = {"coarse_score": phase_coarse_score, "icp": phase_icp, "pyramid": phase_pyramid}
+    if len(sys.argv) == 2 and sys.argv[1] in single:
+        single[sys.argv[1]](dev)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}), flush=True)
         return 0
 
     cid, det, det_cpu, frames, depths = bench_detectors(dev)
-    calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
+    with counting_pyramid_calls("match_vga", least=1):
+        calls, match_launches = phase_match_vga(dev, cid, det, det_cpu, frames, depths)
     w, mc, mc_cpu, pipe, setup_s = multiclass_setup(dev)
-    mc_calls, mc_launches = phase_match_mc(dev, w, mc, mc_cpu, setup_s)
+    with counting_pyramid_calls("match_mc", least=1):
+        mc_calls, mc_launches = phase_match_mc(dev, w, mc, mc_cpu, setup_s)
     w_ms, ms, ms_setup_s = multiscale_setup(dev)
-    ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
+    with counting_pyramid_calls("match_ms", least=1):
+        ms_call, ms_launches = phase_match_ms(dev, w_ms, ms, ms_setup_s)
     max_err, pool_case = phase_kernel_parity(dev, calls, mc_calls, ms_call)
     full_case, lm_case = phase_coarse_parity(dev, w, mc, mc_cpu)
     coarse_cases = phase_coarse_score(dev)
     icp_cases = phase_icp(dev)
+    pyramid_cases = phase_pyramid(dev)
     with counting_icp_calls("match_golden"):
         phase_match_golden(dev)
-    with counting_icp_calls("refine_vga", least=1):
+    with counting_icp_calls("refine_vga", least=1), counting_pyramid_calls("refine_vga", least=1):
         launches, refine_stage = phase_refine_vga(dev, cid, det, det_cpu, frames, depths)
     render_ms = phase_render(dev)
     with tempfile.TemporaryDirectory() as tmp:
         bank_path = os.path.join(tmp, "synth_bank.npz")
         train_s, train_per_class, restored = phase_train_synth(dev, bank_path)
-        with counting_icp_calls("refine_mc", least=3):
+        with counting_icp_calls("refine_mc", least=3), counting_pyramid_calls("refine_mc", least=3):
             refine_mc = phase_refine_mc(dev, w, pipe)
         with counting_icp_calls("goldens"):
             phase_refine_golden(dev)
             phase_mc_golden(dev)
             phase_ms_golden(dev)
-        with counting_coarse_calls("synth_golden"), counting_icp_calls("synth_golden"):
+        with counting_coarse_calls("synth_golden"), counting_icp_calls("synth_golden"), \
+                counting_pyramid_calls("synth_golden"):
             golden_launches = phase_synth_golden(dev)
         mc_refine_launches = finish_refine_mc(refine_mc)
-        with counting_coarse_calls("synth"), counting_icp_calls("synth", least=1):
+        with counting_coarse_calls("synth"), counting_icp_calls("synth", least=1), \
+                counting_pyramid_calls("synth", least=1):
             synth_launches, svc, synth_result = phase_synth(dev, restored, train_s)
     with counting_icp_calls("lchf"):
         lchf_launches, _ = phase_lchf(dev)
@@ -3646,13 +3763,14 @@ def main() -> int:
     seg_launches, seg_kernels = phase_seg(dev)
     t0 = time.perf_counter()
     emit("seg_golden", t0, **phase_seg_golden(dev))
-    with counting_coarse_calls("parallel"), counting_icp_calls("parallel"):
+    with counting_coarse_calls("parallel"), counting_icp_calls("parallel"), counting_pyramid_calls("parallel"):
         parallel = phase_parallel(dev, cid, det, frames, depths, w_ms, w, pipe, ms["card"])
-    with counting_coarse_calls("tools"), counting_icp_calls("tools"):
+    with counting_coarse_calls("tools"), counting_icp_calls("tools"), counting_pyramid_calls("tools"):
         tools = phase_tools(dev)
-    with counting_coarse_calls("bench"), counting_icp_calls("bench"):
+    with counting_coarse_calls("bench"), counting_icp_calls("bench"), counting_pyramid_calls("bench"):
         bench_launches = phase_bench(dev, cid, det, det_cpu)
-    with counting_coarse_calls("dense_route"), counting_icp_calls("dense_route"):
+    with counting_coarse_calls("dense_route"), counting_icp_calls("dense_route"), \
+            counting_pyramid_calls("dense_route"):
         dense_launches = phase_dense_route(dev, cid, det, det_cpu, frames, depths)
     stages = svc.metrics.snapshot()["stages"]
     synth = {
@@ -3753,6 +3871,20 @@ def main() -> int:
         "bound_by": icp_cases["tless_fused"]["bound"]["bound_by"],
         "ptxas": ptxas["icp"],
         "at_linemod_host_call": {k: icp_cases["linemod_host"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+    }, {
+        "name": "response_pyramid",
+        "route": "cuda",
+        "source": "sixdpose_tpu_torch/csrc/response_pyramid.cu",
+        "replaces": "no TPU kernel: the JAX package's XLA program of _build_response_pyramid "
+                    "(sixdpose_tpu/models/detector.py), which the port ran as eager PyTorch, 1,370 kernels a frame",
+        "launches": sum(PYRAMID_BY_PHASE.values()),
+        "launches_by_phase": PYRAMID_BY_PHASE,
+        "exact_vs_plain": True,
+        **{k: pyramid_cases["tless_720x540"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
+        "bound_ms": pyramid_cases["tless_720x540"]["bound"]["bound_ms"],
+        "bound_by": pyramid_cases["tless_720x540"]["bound"]["bound_by"],
+        "ptxas": ptxas["response_pyramid"],
+        "at_linemod_frame": {k: pyramid_cases["linemod_640x480"][k] for k in ("kernel_ms", "plain_ms", "library_ms")},
     }]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,6 +33,7 @@ from sixdpose_tpu_torch.convert import DeviceBank, bank_levels_from_numpy
 from sixdpose_tpu_torch.device import resolve_device
 from sixdpose_tpu_torch.models.templates import TemplateBank
 from sixdpose_tpu_torch.ops import quantize as Q
+from sixdpose_tpu_torch.ops.response_pyramid import response_pyramid_cuda
 from sixdpose_tpu_torch.ops.similarity import (
     score_normalize,
     similarity_dense,
@@ -167,8 +168,19 @@ def _build_response_pyramid(rgb, depth, cfg: DetectorConfig) -> List[torch.Tenso
 
     ``rgb`` ([B,] H, W, 3) uint8 and ``depth`` ([B,] H, W) int32 (either may
     be None when its modality is off).  Returns per level ([B,] C, H_l, W_l)
-    uint8, C = 8 * modalities.
+    uint8, C = 8 * modalities.  CUDA tensors take the pyramid kernels
+    (``ops/response_pyramid.py``, one launcher call), CPU tensors the plain
+    version; both give the same bytes.
     """
+    image = rgb if cfg.use_color else depth
+    if image is not None and image.is_cuda:
+        return response_pyramid_cuda(rgb, depth, cfg)
+    return _build_response_pyramid_plain(rgb, depth, cfg)
+
+
+def _build_response_pyramid_plain(rgb, depth, cfg: DetectorConfig) -> List[torch.Tensor]:
+    """``_build_response_pyramid`` in plain PyTorch ops (``ops/quantize.py``,
+    ``ops/spread.py``), on any device."""
     levels = cfg.pyramid_levels
     per_level: List[List[torch.Tensor]] = [[] for _ in range(levels)]
     if cfg.use_color:

@@ -2,8 +2,9 @@
 
 The local-refine kernel against its plain version on the card, the
 wrapper's input checks, the detector on the card against its CPU run, the
-scene maps, batched ICP, verification and the fused detect+refine frame on
-the card against their CPU runs, the multi-class path (the coarse-scorer
+response-pyramid kernels against their plain version, the scene maps,
+batched ICP, verification and the fused detect+refine frame on the card
+against their CPU runs, the multi-class path (the coarse-scorer
 kernel, ``MultiClassMatcher`` and ``FusedMultiClassPipeline``),
 the multi-scale matchers (``MultiScaleMultiClass``, ``MultiScaleDetector``),
 the rasterizer, ``PoseEstimationService`` and ``run_benchmark`` on the card
@@ -333,6 +334,103 @@ def test_icp_batch_takes_strided_inputs_on_card(cuda):
     want = TR.icp_batch_plain(*call, **kw)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+def _pyramid_scene(seed, b, h, w):
+    """B frames: RGB noise with two flat blocks, and depth of a tilted dome
+    with noise, a hole of zeros, a band past the distance threshold and a
+    400 mm step."""
+    rng = np.random.default_rng(seed)
+    rgb = rng.integers(0, 256, (b, h, w, 3)).astype(np.uint8)
+    rgb[:, h // 5 : h // 2, w // 4 : 3 * w // 4] = (200, 40, 90)
+    rgb[:, h // 3 : 2 * h // 3, w // 2 :] = (30, 220, 120)
+    yy, xx = np.mgrid[0:h, 0:w]
+    d = 800.0 + 0.8 * xx - 0.5 * yy - 80.0 * np.sqrt(np.clip(1 - ((yy - h / 2) ** 2 + (xx - w / 2) ** 2)
+                                                             / (0.35 * max(h, 2)) ** 2, 0, 1))
+    dep = d + rng.normal(0, 3.0, (b, h, w))
+    dep[:, : h // 6, : w // 5] = 0
+    dep[:, h // 2 :, : w // 8] = 2600
+    dep[:, h // 4 : h // 3, :] += 400
+    return torch.from_numpy(rgb), torch.from_numpy(np.clip(dep, 0, 65535).astype(np.int32))
+
+
+# name: (frames, height, width, DetectorConfig settings, strided inputs)
+PYRAMID_CASES = {
+    "tless_720x540": (1, 540, 720, dict(t_at_level=(5, 8)), False),
+    "linemod_640x480": (1, 480, 640, dict(t_at_level=(5, 8)), False),
+    "odd_131x97_b2_t4": (2, 97, 131, dict(t_at_level=(4, 8)), False),
+    "below_the_halos_13x9_t1": (1, 9, 13, dict(t_at_level=(1, 2)), False),
+    "stock_lut_parity": (1, 120, 160, dict(t_at_level=(5, 8), response_lut="stock", depth=dict(lut_parity=True)),
+                         False),
+    "binary45_colour_only": (1, 120, 160, dict(t_at_level=(4, 8), response_lut="binary45", use_depth=False), False),
+    "depth_only_thresholds": (2, 96, 128, dict(t_at_level=(5, 8), use_color=False, depth=dict(
+        distance_threshold=1000, difference_threshold=20, focal=572.0)), False),
+    "three_levels_weak_threshold": (1, 150, 200, dict(t_at_level=(4, 8, 3), color=dict(weak_threshold=7.3)), False),
+    "strided_b2": (2, 97, 131, dict(t_at_level=(5, 8)), True),
+}
+
+
+@pytest.mark.parametrize("name", list(PYRAMID_CASES))
+def test_response_pyramid_kernel_equals_plain(cuda, name):
+    """``_build_response_pyramid`` on the card (the pyramid kernels, one
+    launcher call by the wrapper's counter) gives every level's maps equal
+    to the byte to ``_build_response_pyramid_plain`` on the card and on the
+    CPU."""
+    from sixdpose_tpu_torch.config import ColorGradientConfig, DepthNormalConfig
+    from sixdpose_tpu_torch.models import detector as D
+    from sixdpose_tpu_torch.ops import response_pyramid as RP
+
+    b, h, w, kw, strided = PYRAMID_CASES[name]
+    kw = dict(kw)
+    cfg = DetectorConfig(color=ColorGradientConfig(**kw.pop("color", {})),
+                         depth=DepthNormalConfig(**kw.pop("depth", {})), **kw)
+    rgb, dep = _pyramid_scene(len(name), b, h, w)
+    rgb_d, dep_d = rgb.to(cuda), dep.to(cuda)
+    if strided:  # a crop of a wider frame and a transposed copy
+        rgb_d = torch.cat([rgb_d, rgb_d[:, :, :5]], dim=2)[:, :, :w]
+        dep_d = dep_d.transpose(1, 2).contiguous().transpose(1, 2)
+        assert not (rgb_d.is_contiguous() or dep_d.is_contiguous())
+    before = RP.response_pyramid_cuda.launches
+    got = D._build_response_pyramid(rgb_d, dep_d, cfg)
+    assert RP.response_pyramid_cuda.launches == before + 1
+    on_card = D._build_response_pyramid_plain(rgb_d, dep_d, cfg)
+    on_cpu = D._build_response_pyramid_plain(rgb, dep, cfg)
+    assert len(got) == len(cfg.t_at_level)
+    for g, c, p in zip(got, on_card, on_cpu):
+        assert g.shape == c.shape == p.shape and g.dtype == torch.uint8
+        assert torch.equal(g, c), int((g != c).sum())
+        assert torch.equal(g.cpu(), p)
+    assert int((got[0] != 0).sum()) > 0
+
+
+def test_response_pyramid_runs_once_a_frame(cuda):
+    """A frame's pyramid at each cell's frame size calls the kernels'
+    launcher once, and the launcher enqueues at most 8 kernels inside the
+    ``pyramid`` stage span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sixdpose_tpu_torch.ops import response_pyramid as RP
+
+    det = Detector(DetectorConfig(t_at_level=(5, 8)), device=cuda)
+    frames = [_pyramid_scene(0, 1, 540, 720), _pyramid_scene(1, 1, 480, 640)]
+    frames = [(r[0].numpy(), d[0].numpy()) for r, d in frames]
+    for rgb, dep in frames:
+        det.build_response_pyramid(rgb, dep)
+    torch.cuda.synchronize()
+    before = RP.response_pyramid_cuda.launches
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for rgb, dep in frames:
+            det.build_response_pyramid(rgb, dep)
+        torch.cuda.synchronize()
+    assert RP.response_pyramid_cuda.launches == before + 2
+    events = prof.events()
+    spans = [e.time_range for e in events if e.name == "sixdpose.pyramid"]
+    assert len(spans) == 2
+    for r in spans:
+        launches = [e.name for e in events if (e.name in ("cudaLaunchKernel", "cudaLaunchKernelExC")
+                                               or e.name.startswith("cuLaunchKernel"))
+                    and r.start <= e.time_range.start <= r.end]
+        assert 1 <= len(launches) <= 8, launches
 
 
 @pytest.mark.parametrize("zscore", [False, True])

@@ -229,3 +229,68 @@ def test_quantize_depth_normal_lut_parity_on_norms_torch_rounds_wrong(rng, monke
     assert int(off.sum()) > 10, int(off.sum())
     assert np.array_equal(real(sq[off]).numpy(), np.asarray(jnp.sqrt(jnp.asarray(sq[off].numpy()))))
     assert np.array_equal(t, j)
+
+
+PYRAMID_CFGS = {
+    "cells": dict(t_at_level=(5, 8)),
+    "stock_lut_parity": dict(t_at_level=(4, 8), response_lut="stock", depth=dict(lut_parity=True)),
+    "colour_binary45": dict(t_at_level=(4, 8), response_lut="binary45", use_depth=False),
+    "depth_three_levels": dict(t_at_level=(5, 8, 3), use_color=False),
+}
+
+
+def _pyramid_cfg(name):
+    from sixdpose_tpu_torch.config import DepthNormalConfig, DetectorConfig
+
+    kw = dict(PYRAMID_CFGS[name])
+    return DetectorConfig(depth=DepthNormalConfig(**kw.pop("depth", {})), **kw)
+
+
+@pytest.mark.parametrize("name", list(PYRAMID_CFGS))
+def test_response_pyramid_on_cpu_is_the_plain_version(rng, name):
+    """``_build_response_pyramid`` on CPU tensors runs the plain version:
+    the same bytes as ``_build_response_pyramid_plain``, the kernels'
+    launcher never called (its counter unmoved)."""
+    from sixdpose_tpu_torch.models import detector as D
+    from sixdpose_tpu_torch.ops import response_pyramid as RP
+
+    cfg = _pyramid_cfg(name)
+    rgb = _t(np.stack([_scene(rng, 48, 64) for _ in range(2)]))
+    depth = _t(np.stack([_depth(rng, 48, 64) for _ in range(2)]).astype(np.int32))
+    before = RP.response_pyramid_cuda.launches
+    got = D._build_response_pyramid(rgb, depth, cfg)
+    want = D._build_response_pyramid_plain(rgb, depth, cfg)
+    assert RP.response_pyramid_cuda.launches == before
+    assert [tuple(g.shape) for g in got] == [(2, 8 * cfg.num_modalities) + s for s in
+                                              RP.level_shapes(48, 64, len(cfg.t_at_level))]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert all(int((g != 0).sum()) > 0 for g in got)
+
+
+REFUSED = {
+    "cpu_tensors": (dict(), ValueError, "takes CUDA tensors"),
+    "float_rgb": (dict(rgb=torch.float32), TypeError, "rgb must be torch.uint8"),
+    "int64_depth": (dict(depth=torch.int64, cfg=dict(use_color=False)), TypeError, "depth must be torch.int32"),
+    "rgb_without_channels": (dict(rgb_shape=(2, 48, 64)), ValueError, "rgb must be"),
+    "unknown_lut": (dict(cfg=dict(response_lut="cosine")), ValueError, "unknown response LUT"),
+    "no_modality": (dict(cfg=dict(use_color=False, use_depth=False)), ValueError, "needs a modality"),
+    "t_zero": (dict(cfg=dict(t_at_level=(0, 8))), ValueError, "t >= 1"),
+}
+
+
+@pytest.mark.parametrize("name", list(REFUSED))
+def test_response_pyramid_cuda_refuses_what_the_kernels_do_not_take(name):
+    """The card wrapper raises a clear error for CPU tensors, wrong dtypes
+    and shapes and settings the kernels do not take, and launches
+    nothing."""
+    from sixdpose_tpu_torch.config import DetectorConfig
+    from sixdpose_tpu_torch.ops import response_pyramid as RP
+
+    over, err, match = REFUSED[name]
+    rgb = torch.zeros(over.get("rgb_shape", (2, 48, 64, 3)), dtype=over.get("rgb", torch.uint8))
+    depth = torch.zeros((2, 48, 64), dtype=over.get("depth", torch.int32))
+    before = RP.response_pyramid_cuda.launches
+    with pytest.raises(err, match=match):
+        RP.response_pyramid_cuda(rgb, depth, DetectorConfig(**over.get("cfg", {})))
+    assert RP.response_pyramid_cuda.launches == before
